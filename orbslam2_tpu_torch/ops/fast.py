@@ -1,0 +1,88 @@
+"""FAST-9/16 corner scoring with 3x3 NMS, and kernel K2.
+
+Port of orbslam2_tpu/ops/fast.py (reference per-cell cv::FAST,
+src/ORBextractor.cpp:702-766): the OpenCV-style FAST score map (the
+largest threshold at which a pixel is still a corner) for every pixel of
+every image of the batch, then 3x3 non-maximum suppression.
+
+`fast_nms` returns the masked score `where(nms3(score), score, 0)` that
+the extractor selects keypoints from (orbslam2_tpu/ops/orb.py:216-217).
+On a CUDA tensor it launches the hand-written kernel `csrc/fast_nms.cu`.
+Every step is a min, a max or one float subtraction, so the kernel and
+the plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..convert import CIRCLE
+from ..kernels import build
+
+def _edge_pad3(img: torch.Tensor) -> torch.Tensor:
+    """Replicate-pad the last two axes by 3 (`jnp.pad(mode="edge")`)."""
+    H, W = img.shape[-2], img.shape[-1]
+    rows = torch.clamp(torch.arange(-3, H + 3, device=img.device), 0, H - 1)
+    cols = torch.clamp(torch.arange(-3, W + 3, device=img.device), 0, W - 1)
+    return img[..., rows, :][..., cols]
+
+
+def fast_score(img: torch.Tensor) -> torch.Tensor:
+    """FAST-9/16 score map of [..., H, W] float32 grayscale (0..255)."""
+    H, W = img.shape[-2], img.shape[-1]
+    ip = _edge_pad3(img)
+    ds = [ip[..., 3 + dy : 3 + dy + H, 3 + dx : 3 + dx + W] - img for (dx, dy) in CIRCLE]
+
+    # FAST-9: the 16 circular windows of 9 ring pixels, by log-doubling (9 = 8 + 1)
+    def win9(vals, op):
+        w2 = [op(vals[k], vals[(k + 1) % 16]) for k in range(16)]
+        w4 = [op(w2[k], w2[(k + 2) % 16]) for k in range(16)]
+        w8 = [op(w4[k], w4[(k + 4) % 16]) for k in range(16)]
+        return [op(w8[k], vals[(k + 8) % 16]) for k in range(16)]
+
+    mins = win9(ds, torch.minimum)
+    maxs = win9(ds, torch.maximum)
+    score = torch.zeros_like(img)
+    for k in range(16):
+        score = torch.maximum(score, mins[k])
+        score = torch.maximum(score, -maxs[k])
+    return torch.clamp(score, min=0.0)
+
+
+def nms3(score: torch.Tensor) -> torch.Tensor:
+    """3x3 NMS mask: True where score is the (tied) local max and > 0;
+    outside the image counts as -inf."""
+    shape = score.shape
+    s4 = score.reshape(-1, 1, shape[-2], shape[-1])
+    neigh = F.max_pool2d(s4, kernel_size=3, stride=1, padding=1).reshape(shape)
+    return (score >= neigh) & (score > 0.0)
+
+
+def fast_nms_plain(img: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: the NMS-masked FAST score of [B, H, W]."""
+    score = fast_score(img)
+    return torch.where(nms3(score), score, 0.0)
+
+
+def fast_nms(img: torch.Tensor) -> torch.Tensor:
+    """K2 wrapper: masked FAST score of float32 [B, H, W]; the plain
+    version for CPU tensors, the CUDA kernel `fast_nms_launch` for CUDA
+    tensors."""
+    if img.device.type == "cpu":
+        return fast_nms_plain(img)
+    if img.device.type != "cuda":
+        raise ValueError(f"fast_nms: unsupported device {img.device}")
+    if img.dtype != torch.float32 or img.dim() != 3:
+        raise ValueError(f"fast_nms takes float32 [B,H,W], got {img.dtype} {tuple(img.shape)}")
+    img = img.contiguous()
+    B, H, W = img.shape
+    out = torch.empty_like(img)
+    if img.numel() == 0:
+        return out
+    build.launch("fast_nms_launch", img, out, B, H, W)
+    fast_nms.launches += 1
+    return out
+
+
+fast_nms.launches = 0

@@ -1,0 +1,182 @@
+"""Data association: stereo matching, projection matching, BoW-style
+matching, rotation-consistency filtering.
+
+Port of the parts of orbslam2_tpu/ops/matchers.py that the stereo
+tracking path calls (reference src/ORBmatcher.cpp). Each matcher is a
+dense masked all-pairs problem: the geometric gates are ANDed into a
+boolean [N, M] mask in plain PyTorch, and kernel K3 (`hamming.best2`)
+takes the masked Hamming best and second best per row.
+
+The JAX package's one-hot matmuls that stood in for gathers and scatters
+on the TPU (`_choice_matrix`, `_fetch`, `lookup_level`) are plain indexing
+here, with the same choices: the lowest index wins an argmin tie and the
+best distance, then the lowest source index, wins a collision.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import hamming
+
+HISTO_BINS = 30  # rotation histogram bins (reference ORBmatcher HISTO_LENGTH)
+TWO_PI = 6.283185307179586
+
+
+def _resolve_collisions(best_idx: torch.Tensor, d_eff: torch.Tensor, n: int):
+    """Sources s claim targets best_idx[s] with score d_eff[s] (MAX_DIST =
+    no claim); keep the best claim per target, ties to the lowest source.
+    Returns (src_for_target [n] int32, -1 where unclaimed; best_d [n])."""
+    INF = hamming.MAX_DIST
+    S = best_idx.shape[0]
+    key = d_eff.to(torch.int64) * S + torch.arange(S, device=d_eff.device)
+    out = torch.full((n,), INF * S, dtype=torch.int64, device=d_eff.device)
+    out = out.scatter_reduce(0, best_idx.to(torch.int64), key, reduce="amin")
+    best_d = torch.div(out, S, rounding_mode="floor")
+    src = torch.where(best_d < INF, out - best_d * S, -1)
+    return src.to(torch.int32), best_d.to(torch.int32)
+
+
+def rotation_consistency_mask(
+    angle_a: torch.Tensor, angle_b: torch.Tensor, match_valid: torch.Tensor
+) -> torch.Tensor:
+    """Keep matches whose angle difference falls in the 3 dominant
+    histogram bins, bins 2/3 only above 0.1x the first (reference
+    ComputeThreeMaxima, ORBmatcher.cpp:1446-1487)."""
+    rot = torch.remainder(angle_a - angle_b, TWO_PI)
+    bins = torch.remainder(torch.round(rot * (HISTO_BINS / TWO_PI)).to(torch.int32), HISTO_BINS)
+    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=bins.device)
+    hist = hist.index_add(0, bins.long(), match_valid.to(torch.int32))
+    # stable descending sort: ties go to the lower bin, as lax.top_k does
+    top_v, top_i = torch.sort(hist, descending=True, stable=True)
+    th = 0.1 * top_v[0].to(torch.float32)
+    keep2 = torch.where(top_v[1] > th, top_i[1], -1)
+    keep3 = torch.where(top_v[2] > th, top_i[2], -1)
+    ok = (bins == top_i[0]) | (bins == keep2) | (bins == keep3)
+    return match_valid & ok
+
+
+def search_by_bow(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b, ratio: float):
+    """SearchByBoW core (reference ORBmatcher.cpp:110-239) without the
+    vocabulary: mutual-ratio Hamming matching + rotation consistency.
+    Returns (idx [A] into B, best [A], keep [A])."""
+    mask = valid_a[:, None] & valid_b[None, :]
+    idx, best, _, second = hamming.best2(desc_a, desc_b, mask)
+    ok = (best < hamming.TH_LOW) & (best < ratio * second)
+    keep = rotation_consistency_mask(angle_a, angle_b[idx.long()], ok)
+    return idx, best, keep
+
+
+class StereoMatches(NamedTuple):
+    u_right: torch.Tensor  # [N] float32, -1 where unmatched
+    depth: torch.Tensor  # [N] float32, -1 where unmatched
+    valid: torch.Tensor  # [N] bool
+
+
+def stereo_match(uvL, octL, descL, validL, uvR, octR, descR, validR,
+                 scale_factors: torch.Tensor, bf: float, min_z: float) -> StereoMatches:
+    """Left-right ORB matching for a rectified pair (reference
+    Frame::ComputeStereoMatches, src/Frame.cpp:538-673): row band
+    +-2*sigma(octave of L), octave gate +-1, disparity in (0, bf/min_z],
+    Hamming < (TH_HIGH+TH_LOW)/2, then the 1.5*1.4*median distance cut."""
+    th_orb = (hamming.TH_HIGH + hamming.TH_LOW) // 2
+    max_d = bf / min_z
+
+    band = torch.abs(uvR[None, :, 1] - uvL[:, 1, None]) <= 2.0 * scale_factors[octL.long()][:, None]
+    octave_ok = torch.abs(octR[None, :] - octL[:, None]) <= 1
+    uL = uvL[:, 0, None]
+    uR = uvR[None, :, 0]
+    disp_ok = (uR >= uL - max_d) & (uR <= uL)
+    mask = band & octave_ok & disp_ok & validL[:, None] & validR[None, :]
+    best_idx, best_dist, _, _ = hamming.best2(descL, descR, mask)
+
+    u_right = uvR[best_idx.long(), 0]
+    disparity = uvL[:, 0] - u_right
+    matched = (best_dist < th_orb) & (disparity >= 0.0) & (disparity < max_d)
+    # clamp near-zero disparity exactly like the reference (Frame.cpp:652-656)
+    disparity = torch.where(disparity <= 0.0, 0.01, disparity)
+    u_right = torch.where(disparity <= 0.01, uvL[:, 0] - 0.01, u_right)
+
+    # median-distance cut over accepted matches
+    d_acc = torch.where(matched, best_dist, hamming.MAX_DIST)
+    n_acc = matched.sum()
+    sorted_d = torch.sort(d_acc).values
+    median = sorted_d[torch.clamp(n_acc // 2, 0, d_acc.shape[0] - 1)]
+    th_dist = (1.5 * 1.4) * median.to(torch.float32)
+    keep = matched & (best_dist < th_dist)
+
+    bf_t = torch.tensor(bf, dtype=torch.float32, device=disparity.device)
+    depth = torch.where(keep, bf_t / disparity, -1.0)
+    return StereoMatches(u_right=torch.where(keep, u_right, -1.0), depth=depth, valid=keep)
+
+
+def search_by_projection_frame(
+    uv_cur, oct_cur, desc_cur, valid_cur, angle_cur,
+    uv_proj, oct_last, desc_last, valid_proj, angle_last,
+    scale_factors: torch.Tensor, th: float, forward: bool, backward: bool,
+    check_rotation: bool = True,
+):
+    """Frame-to-frame projection matching (reference SearchByProjection(
+    Frame&, Frame&, th), ORBmatcher.cpp:1173-1315): for each projected
+    last-frame point, the best current keypoint in a th*sigma window with
+    forward/backward octave gating. Returns (point index per current
+    keypoint [-1 none], distance)."""
+    radius = th * scale_factors[oct_last.long()]  # [M]
+    du = uv_cur[None, :, 0] - uv_proj[:, 0, None]  # [M,N]
+    dv = uv_cur[None, :, 1] - uv_proj[:, 1, None]
+    window = (torch.abs(du) <= radius[:, None]) & (torch.abs(dv) <= radius[:, None])
+
+    oc = oct_cur[None, :]
+    ol = oct_last[:, None]
+    if forward:
+        oct_gate = oc >= ol
+    elif backward:
+        oct_gate = oc <= ol
+    else:
+        oct_gate = (oc >= ol - 1) & (oc <= ol + 1)
+
+    mask = window & oct_gate & valid_proj[:, None] & valid_cur[None, :]
+    best_idx, best_dist, _, _ = hamming.best2(desc_last, desc_cur, mask)
+    ok = best_dist <= hamming.TH_HIGH
+    if check_rotation:
+        ok = rotation_consistency_mask(angle_last, angle_cur[best_idx.long()], ok)
+    d_eff = torch.where(ok, best_dist, hamming.MAX_DIST)
+    return _resolve_collisions(best_idx, d_eff, uv_cur.shape[0])
+
+
+def search_by_projection_points(
+    uv_cur, oct_cur, ur_cur, desc_cur, valid_cur,
+    uv_pt, ur_pt, level_pt, view_cos, desc_pt, valid_pt,
+    scale_factors: torch.Tensor, th: float, nn_ratio: float = 0.8,
+):
+    """Local-map projection matching (reference SearchByProjection(Frame&,
+    vector<MapPoint*>&, th), ORBmatcher.cpp:16-100): radius 2.5/4.0 by
+    viewing angle scaled by sigma(predicted level), octave in [pred-1,
+    pred], the 0.8 ratio test when best and second best share a level,
+    TH_HIGH, and stereo right-coordinate agreement. Returns (point index
+    per keypoint [-1 none], distance)."""
+    r_base = torch.where(view_cos > 0.998, 2.5, 4.0)
+    radius = th * r_base * scale_factors[level_pt.long()]
+
+    du = uv_cur[None, :, 0] - uv_pt[:, 0, None]  # [P,N]
+    dv = uv_cur[None, :, 1] - uv_pt[:, 1, None]
+    window = (torch.abs(du) <= radius[:, None]) & (torch.abs(dv) <= radius[:, None])
+    oc = oct_cur[None, :]
+    pl = level_pt[:, None]
+    oct_gate = (oc >= pl - 1) & (oc <= pl)
+    has_stereo = ur_cur[None, :] >= 0
+    er = torch.abs(ur_cur[None, :] - ur_pt[:, None])
+    stereo_gate = torch.where(has_stereo, er <= radius[:, None], True)
+
+    mask = window & oct_gate & stereo_gate & valid_pt[:, None] & valid_cur[None, :]
+    best_idx, best, second_idx, second = hamming.best2(desc_pt, desc_cur, mask)
+
+    best_oct = oct_cur[best_idx.long()]
+    second_oct = oct_cur[second_idx.long()]
+    ratio_applies = (best_oct == second_oct) & (second < hamming.MAX_DIST)
+    ratio_ok = torch.where(ratio_applies, best.to(torch.float32) <= nn_ratio * second, True)
+    ok = (best <= hamming.TH_HIGH) & ratio_ok & valid_pt
+    d_eff = torch.where(ok, best, hamming.MAX_DIST)
+    return _resolve_collisions(best_idx, d_eff, uv_cur.shape[0])

@@ -1,0 +1,122 @@
+"""The port imports without JAX and without the JAX package, its copies of
+the JAX package's JAX-free modules equal their originals, and its kernel
+wrappers choose their path by the device of the tensor they are given."""
+
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from orbslam2_tpu import config as jconfig
+from orbslam2_tpu.evaluation import ate as jate
+from orbslam2_tpu.slam import timing as jtiming
+from orbslam2_tpu_torch import config as tconfig
+from orbslam2_tpu_torch.evaluation import ate as tate
+from orbslam2_tpu_torch.kernels import build
+from orbslam2_tpu_torch.ops import fast, hamming, patches
+from orbslam2_tpu_torch.slam import timing as ttiming
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("module", [
+    "orbslam2_tpu_torch.slam.system",
+    "orbslam2_tpu_torch.datasets.synthetic",
+    "orbslam2_tpu_torch.evaluation.ate",
+    "orbslam2_tpu_torch.convert",
+])
+def test_imports_without_jax(module):
+    code = (
+        "import sys; sys.modules['jax'] = None; sys.modules['orbslam2_tpu'] = None; "
+        f"import {module}; "
+        "bad = [m for m, v in sys.modules.items() if v is not None and "
+        "(m in ('jax', 'orbslam2_tpu') or m.startswith(('jax.', 'orbslam2_tpu.')))]; "
+        "print('ok' if not bad else bad)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", (out.stdout, out.stderr)
+
+
+@pytest.mark.parametrize("part", ["config", "timing", "ate", "pattern"])
+def test_copies_equal_jax_package(part):
+    if part == "config":
+        for name in ("CameraConfig", "OrbConfig", "RectifyConfig"):
+            assert dataclasses.asdict(getattr(tconfig, name)()) == dataclasses.asdict(
+                getattr(jconfig, name)())
+        t, j = tconfig.SlamConfig(), jconfig.SlamConfig()
+        jax_only = {"shapes", "pipelined_tracking", "pipeline_min_inliers"}
+        assert [f.name for f in dataclasses.fields(t)] == [
+            f.name for f in dataclasses.fields(j) if f.name not in jax_only]
+        assert (t.baseline, t.depth_threshold, t.max_frames) == (j.baseline, j.depth_threshold, j.max_frames)
+    elif part == "timing":
+        t, j = ttiming.StageTimers(), jtiming.StageTimers()
+        for timers in (t, j):
+            for us in (10.0, 30.0):
+                timers.samples.setdefault("Total tracking", []).append(us)
+        assert t.report() == j.report()
+    elif part == "ate":
+        rng = np.random.default_rng(1)
+        gt = rng.normal(size=(40, 3))
+        est = gt @ np.linalg.qr(rng.normal(size=(3, 3)))[0].T + rng.normal(0, 0.01, (40, 3))
+        for with_scale in (False, True):
+            assert tate.ate_rmse(est, gt, with_scale=with_scale) == jate.ate_rmse(
+                est, gt, with_scale=with_scale)
+    else:
+        with open(os.path.join(ROOT, "orbslam2_tpu", "ops", "orb_pattern.npy"), "rb") as a, \
+                open(os.path.join(ROOT, "orbslam2_tpu_torch", "ops", "orb_pattern.npy"), "rb") as b:
+            assert a.read() == b.read()
+
+
+def test_no_jax_import_in_port_sources():
+    pattern = re.compile(r"^\s*(import jax|from jax|import orbslam2_tpu\b(?!_)|from orbslam2_tpu\b(?!_))", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "orbslam2_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    hits = [f for f in files if pattern.search(open(f).read())]
+    assert not hits, hits
+
+
+def test_wrappers_refuse_other_devices():
+    img = torch.zeros((2, 40, 40), device="meta")
+    with pytest.raises(ValueError):
+        fast.fast_nms(img)
+    xs = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        patches.orb_patch_desc(img, xs, xs)
+    d = torch.zeros((3, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        hamming.best2(d, d, torch.zeros((3, 3), dtype=torch.bool, device="meta"))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    before = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    img = torch.rand((2, 48, 64)) * 255
+    fast.fast_nms(img)
+    xs = torch.full((2, 3), 20, dtype=torch.int32)
+    patches.orb_patch_desc(img, xs, xs)
+    d = torch.zeros((3, 8), dtype=torch.int32)
+    hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool))
+    after = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    assert after == before
+
+
+def test_kernel_library_key_tracks_sources():
+    path = build.library_path()
+    assert path == build.library_path()
+    assert os.path.basename(os.path.dirname(path)) == "kernels"
+    assert {os.path.basename(s) for s in build._sources()} >= {
+        "orb_patch_desc.cu", "fast_nms.cu", "hamming_best2.cu"}
+
+
+def test_failed_build_raises(monkeypatch):
+    monkeypatch.setattr(build, "_lib", None)
+    monkeypatch.setattr(build, "_nvcc", lambda: "/bin/false")
+    monkeypatch.setattr(build, "library_path", lambda: os.path.join(ROOT, "build", "kernels", "never.so"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.load()
