@@ -8,7 +8,11 @@ failed build raises with nvcc's output.
 
 Every exported launcher has the signature `int fn(<pointers>, <ints>,
 void* stream)` and returns `cudaGetLastError()` right after its launch;
-`launch` below raises on a non-zero code.
+`launch` below raises on a non-zero code. A launcher that takes its
+arguments as one struct gets a pointer to a `ctypes.Structure` that
+mirrors it; the launcher builds the kernel's parameter struct from it
+(the grid layout included) and writes the number of blocks it launched
+back into the struct's `n_blocks`.
 """
 
 from __future__ import annotations
@@ -33,8 +37,8 @@ NVCC_FLAGS = [
 
 #: C signatures of the exported launchers: name -> (pointer count, int count)
 SIGNATURES = {
-    "orb_patch_desc_launch": (8, 4),
-    "fast_nms_launch": (2, 3),
+    "orb_patch_desc_levels_launch": (1, 0),
+    "fast_nms_levels_launch": (1, 0),
     "hamming_best2_launch": (7, 2),
 }
 
@@ -96,13 +100,23 @@ def load() -> ctypes.CDLL:
         return lib
 
 
+def _arg(a):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.data_ptr()
+    if isinstance(a, ctypes.Structure):
+        return ctypes.addressof(a)
+    return int(a)
+
+
 def launch(name: str, *args) -> None:
-    """Call launcher `name` with tensors/ints on the current CUDA stream;
-    raise if the launch was refused (`cudaGetLastError` != 0)."""
+    """Call launcher `name` with tensors, structs or ints on the current
+    CUDA stream; raise if the launch was refused (`cudaGetLastError` != 0)."""
     import torch
 
     lib = load()
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a) for a in args]
+    conv = [_arg(a) for a in args]
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib, name)(*conv, stream)
     if err != 0:

@@ -5,14 +5,17 @@ src/ORBextractor.cpp:702-766): the OpenCV-style FAST score map (the
 largest threshold at which a pixel is still a corner) for every pixel of
 every image of the batch, then 3x3 non-maximum suppression.
 
-`fast_nms` returns the masked score `where(nms3(score), score, 0)` that
-the extractor selects keypoints from (orbslam2_tpu/ops/orb.py:216-217).
-On a CUDA tensor it launches the hand-written kernel `csrc/fast_nms.cu`.
-Every step is a min, a max or one float subtraction, so the kernel and
-the plain version agree bit for bit.
+`fast_nms_levels` returns, for every pyramid level of a frame, the masked
+score `where(nms3(score), score, 0)` that the extractor selects keypoints
+from (orbslam2_tpu/ops/orb.py:216-217); `fast_nms` is its one-level case.
+On CUDA tensors it makes one launch of the hand-written kernel
+`csrc/fast_nms.cu` for all levels. Every step is a min, a max or one float
+subtraction, so the kernel and the plain version agree bit for bit.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -65,24 +68,62 @@ def fast_nms_plain(img: torch.Tensor) -> torch.Tensor:
     return torch.where(nms3(score), score, 0.0)
 
 
+def fast_nms_levels_plain(levels: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Plain version of the all-level K2 launch: `fast_nms_plain` per level."""
+    return [fast_nms_plain(img) for img in levels]
+
+
+# csrc/fast_nms.cu: at most MAX_LEVELS level descriptors
+MAX_LEVELS = 16
+
+
+class _Level(ctypes.Structure):
+    _fields_ = [("img", ctypes.c_void_p), ("out", ctypes.c_void_p), ("h", ctypes.c_int), ("w", ctypes.c_int)]
+
+
+class _Levels(ctypes.Structure):
+    """`FastLevelsIn` of csrc/fast_nms.cu. The launcher lays the levels'
+    tiles out in one grid and sets `n_blocks` to the blocks it launched."""
+
+    _fields_ = [
+        ("lv", _Level * MAX_LEVELS), ("n_levels", ctypes.c_int), ("n_images", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
+    ]
+
+
+def fast_nms_levels(levels: list[torch.Tensor]) -> list[torch.Tensor]:
+    """K2 wrapper over every level of a frame: the masked FAST score of each
+    float32 [B, h, w] level (B images, the same at every level). CPU
+    tensors take the plain version; CUDA tensors take ONE launch of
+    `fast_nms_levels_launch` over every level and image."""
+    if not 0 < len(levels) <= MAX_LEVELS:
+        raise ValueError(f"fast_nms_levels takes 1..{MAX_LEVELS} levels, got {len(levels)}")
+    dev = levels[0].device
+    if dev.type == "cpu":
+        return fast_nms_levels_plain(levels)
+    if dev.type != "cuda":
+        raise ValueError(f"fast_nms_levels: unsupported device {dev}")
+    B = levels[0].shape[0]
+    outs = []
+    args = _Levels(n_levels=len(levels), n_images=B)
+    for d, img in zip(args.lv, levels):
+        shape = img.shape
+        if (img.device != dev or img.dtype != torch.float32 or len(shape) != 3 or shape[0] != B
+                or not img.is_contiguous()):
+            raise ValueError(f"fast_nms_levels takes contiguous float32 [B,h,w] levels on one device, "
+                             f"got {img.dtype} {tuple(shape)} on {img.device}")
+        out = torch.empty_like(img)
+        outs.append(out)
+        d.img, d.out, d.h, d.w = img.data_ptr(), out.data_ptr(), shape[1], shape[2]
+    build.launch("fast_nms_levels_launch", args)
+    if args.n_blocks:
+        fast_nms_levels.launches += 1
+    return outs
+
+
+fast_nms_levels.launches = 0
+
+
 def fast_nms(img: torch.Tensor) -> torch.Tensor:
-    """K2 wrapper: masked FAST score of float32 [B, H, W]; the plain
-    version for CPU tensors, the CUDA kernel `fast_nms_launch` for CUDA
-    tensors."""
-    if img.device.type == "cpu":
-        return fast_nms_plain(img)
-    if img.device.type != "cuda":
-        raise ValueError(f"fast_nms: unsupported device {img.device}")
-    if img.dtype != torch.float32 or img.dim() != 3:
-        raise ValueError(f"fast_nms takes float32 [B,H,W], got {img.dtype} {tuple(img.shape)}")
-    img = img.contiguous()
-    B, H, W = img.shape
-    out = torch.empty_like(img)
-    if img.numel() == 0:
-        return out
-    build.launch("fast_nms_launch", img, out, B, H, W)
-    fast_nms.launches += 1
-    return out
-
-
-fast_nms.launches = 0
+    """K2 on one level: the masked FAST score of float32 [B, H, W]."""
+    return fast_nms_levels([img])[0]

@@ -6,11 +6,14 @@ grid-balanced top-k keypoint selection, intensity-centroid orientation,
 7x7 Gaussian blur and 256-bit rotated BRIEF quantized to 32 bins, over a
 batch of images (left and right eye together).
 
-Per level the device work is: the bilinear resize (`F.interpolate`), the
-FAST score with NMS (kernel K2, `fast.fast_nms`), the keypoint selection
-in plain PyTorch, and the fused patch + descriptor kernel K1
-(`patches.orb_patch_desc`). The deviations from the reference are the
-JAX package's, documented in its module docstring.
+`extract` runs in three stages over the whole pyramid: the cascaded
+bilinear resize (`F.interpolate`), then ONE call of the FAST score with
+NMS for every level (kernel K2, `fast.fast_nms_levels`), the keypoint
+selection per level in plain PyTorch, then ONE call of the fused patch +
+descriptor kernel for every keypoint (K1, `patches.orb_patch_desc_levels`).
+No level's features feed another's, so this computes what the JAX
+package's level-by-level loop computes. The deviations from the reference
+are the JAX package's, documented in its module docstring.
 """
 
 from __future__ import annotations
@@ -153,38 +156,36 @@ def extract(images: torch.Tensor, params: OrbParams) -> OrbFeatures:
     """images [B,H,W] float32 (0..255 grayscale) -> OrbFeatures with
     N = params.n_features slots per image."""
     B, H, W = images.shape
-    sizes = level_sizes(H, W, params)
     budgets = features_per_level(params)
     sf = scale_factors(params)
 
-    uv_l, oct_l, ang_l, resp_l, desc_l, valid_l = [], [], [], [], [], []
-    img_l = images
-    for lvl, (h, w) in enumerate(sizes):
-        if lvl > 0:
-            img_l = pyramid_level(img_l, (h, w))
-        n_t = budgets[lvl]
-        if n_t <= 0:
-            continue
-        s = fast.fast_nms(img_l)
-        xs, ys, resp, valid = _select_level_keypoints(s, n_t, params.ini_th, params.min_th)
+    pyramid = [images]
+    for size in level_sizes(H, W, params)[1:]:
+        pyramid.append(pyramid_level(pyramid[-1], size))
+    kept = [lvl for lvl, n_t in enumerate(budgets) if n_t > 0]
+    levels = [pyramid[lvl] for lvl in kept]
+    scores = fast.fast_nms_levels(levels)
+
+    xs_l, ys_l, uv_l, oct_l, resp_l, valid_l = [], [], [], [], [], []
+    for lvl, s in zip(kept, scores):
+        xs, ys, resp, valid = _select_level_keypoints(s, budgets[lvl], params.ini_th, params.min_th)
         # clamp invalid slots to a safe in-bounds position
         xs = torch.where(valid, xs, KP_BORDER)
         ys = torch.where(valid, ys, KP_BORDER)
-        ang, desc = patches.orb_patch_desc(img_l, xs, ys)
-
         scale = torch.tensor(sf[lvl], dtype=torch.float32)
+        xs_l.append(xs)
+        ys_l.append(ys)
         uv_l.append(torch.stack([xs * scale, ys * scale], dim=-1))
-        oct_l.append(torch.full((B, n_t), lvl, dtype=torch.int32, device=images.device))
-        ang_l.append(ang)
+        oct_l.append(torch.full((B, budgets[lvl]), lvl, dtype=torch.int32, device=images.device))
         resp_l.append(resp)
-        desc_l.append(desc)
         valid_l.append(valid)
 
+    angle, desc = patches.orb_patch_desc_levels(levels, xs_l, ys_l)
     return OrbFeatures(
         uv=torch.cat(uv_l, dim=1),
         octave=torch.cat(oct_l, dim=1),
-        angle=torch.cat(ang_l, dim=1),
+        angle=angle,
         response=torch.cat(resp_l, dim=1),
-        desc=torch.cat(desc_l, dim=1),
+        desc=desc,
         valid=torch.cat(valid_l, dim=1),
     )

@@ -35,7 +35,7 @@ class FrameFeatures(NamedTuple):
 
 
 class Frontend:
-    def __init__(self, config: SlamConfig, device):
+    def __init__(self, config: SlamConfig, device="cuda"):
         c = config
         self.config = config
         self.device = torch.device(device)

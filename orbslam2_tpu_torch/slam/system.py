@@ -46,7 +46,7 @@ class System:
         threaded: bool = False,
         mesh=None,
         *,
-        device,
+        device="cuda",
     ):
         if vocabulary is not None:
             raise _not_ported("place recognition with a vocabulary", "relocalization, loop closing")

@@ -75,7 +75,7 @@ def test_copies_equal_jax_package(part):
 
 def test_no_jax_import_in_port_sources():
     pattern = re.compile(r"^\s*(import jax|from jax|import orbslam2_tpu\b(?!_)|from orbslam2_tpu\b(?!_))", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_device_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "orbslam2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     hits = [f for f in files if pattern.search(open(f).read())]
@@ -95,14 +95,14 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_cpu_tensors_take_the_plain_version():
-    before = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     img = torch.rand((2, 48, 64)) * 255
     fast.fast_nms(img)
     xs = torch.full((2, 3), 20, dtype=torch.int32)
     patches.orb_patch_desc(img, xs, xs)
     d = torch.zeros((3, 8), dtype=torch.int32)
     hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool))
-    after = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     assert after == before
 
 

@@ -6,7 +6,10 @@ none (a CUDA kernel has no interpret mode). On the card:
     python -m pytest tests/test_torch_kernels.py -m cuda
 
 Stated tolerances: K2 (fast_nms) and K3 (hamming_best2) exact; K1
-(orb_patch_desc) angle within 1e-4 rad and descriptor bit error rate < 1%.
+(orb_patch_desc) angle within 1e-4 rad and descriptor bit error rate < 1%
+(the kernel sums the moments in another order than the plain version's
+matrix product, so an angle can move in its last bits and, rarely, a
+rotation bin flip).
 """
 
 import numpy as np
@@ -44,6 +47,14 @@ def levels(cuda):
     return out
 
 
+def _k1_close(got, want):
+    (a, d), (a0, d0) = got, want
+    dang = torch.remainder(a.double() - a0.double() + np.pi, 2 * np.pi) - np.pi
+    assert float(dang.abs().max()) <= 1e-4
+    flips = (d ^ d0).cpu().numpy().view(np.uint8)
+    assert np.unpackbits(flips).mean() < 0.01
+
+
 def test_fast_nms_exact(levels):
     for img, _, _ in levels:
         assert torch.equal(fast.fast_nms(img), fast.fast_nms_plain(img))
@@ -51,12 +62,60 @@ def test_fast_nms_exact(levels):
 
 def test_orb_patch_desc(levels):
     for img, xs, ys in levels:
-        a, d = patches.orb_patch_desc(img, xs, ys)
-        a0, d0 = patches.orb_patch_desc_plain(img, xs, ys)
-        dang = torch.remainder(a.double() - a0.double() + np.pi, 2 * np.pi) - np.pi
-        assert float(dang.abs().max()) <= 1e-4
-        flips = (d ^ d0).cpu().numpy().view(np.uint8)
-        assert np.unpackbits(flips).mean() < 0.01
+        _k1_close(patches.orb_patch_desc(img, xs, ys), patches.orb_patch_desc_plain(img, xs, ys))
+
+
+def test_fast_nms_levels_exact(levels):
+    imgs = [img for img, _, _ in levels]
+    got = fast.fast_nms_levels(imgs)
+    assert len(got) == 8 and got[0].shape == (2, 480, 752)
+    for g, img in zip(got, imgs):
+        assert torch.equal(g, fast.fast_nms_plain(img))
+
+
+def test_orb_patch_desc_levels(levels):
+    args = [list(col) for col in zip(*levels)]
+    got = patches.orb_patch_desc_levels(*args)
+    assert got[0].shape == (2, 1200) and got[1].shape == (2, 1200, 8)
+    _k1_close(got, patches.orb_patch_desc_levels_plain(*args))
+    offset = 0
+    for img, xs, ys in levels:
+        n = xs.shape[1]
+        _k1_close((got[0][:, offset:offset + n], got[1][:, offset:offset + n]),
+                  patches.orb_patch_desc_plain(img, xs, ys))
+        offset += n
+
+
+def test_orb_patch_desc_levels_border_and_clamped(levels):
+    """Keypoints on the 16 px border, where the window reaches 5 px into
+    the reflection, and far outside it, where the window start is clamped."""
+    imgs, xs_l, ys_l = [], [], []
+    for img, _, _ in levels:
+        h, w = img.shape[1], img.shape[2]
+        b = orb.KP_BORDER
+        xs = [b, w - 1 - b, b, w - 1 - b, w // 2, -60, 0, w - 1, w + 40, 3]
+        ys = [b, b, h - 1 - b, h - 1 - b, b, h // 2, -9, h - 1, h + 40, 2]
+        imgs.append(img)
+        xs_l.append(torch.tensor([xs, xs[::-1]], dtype=torch.int32, device=img.device))
+        ys_l.append(torch.tensor([ys, ys[::-1]], dtype=torch.int32, device=img.device))
+    _k1_close(patches.orb_patch_desc_levels(imgs, xs_l, ys_l),
+              patches.orb_patch_desc_levels_plain(imgs, xs_l, ys_l))
+
+
+def test_levels_without_work(levels):
+    """The launchers lay out the grid: a level with no keypoints takes no
+    slot or block, and a call with no work launches nothing."""
+    imgs, xs_l, ys_l = [list(col) for col in zip(*levels)]
+    none = torch.zeros((2, 0), dtype=torch.int32, device=imgs[0].device)
+    xs_l[2], ys_l[2] = none, none
+    got = patches.orb_patch_desc_levels(imgs, xs_l, ys_l)
+    assert got[0].shape == (2, 1200 - levels[2][1].shape[1])
+    _k1_close(got, patches.orb_patch_desc_levels_plain(imgs, xs_l, ys_l))
+    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches)
+    a, d = patches.orb_patch_desc_levels(imgs[:3], [none] * 3, [none] * 3)
+    assert a.shape == (2, 0) and d.shape == (2, 0, 8)
+    assert fast.fast_nms_levels([imgs[0][:0]])[0].shape == (0, 480, 752)
+    assert (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches) == before
 
 
 @pytest.mark.parametrize("ties", [False, True])
@@ -80,10 +139,19 @@ def test_hamming_best2_exact(cuda, shape, ties):
 
 def test_wrappers_count_launches(levels):
     img, xs, ys = levels[3]
-    before = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     fast.fast_nms(img)
     patches.orb_patch_desc(img, xs, ys)
     d = torch.zeros((4, 8), dtype=torch.int32, device=img.device)
     hamming.best2(d, d, torch.ones((4, 4), dtype=torch.bool, device=img.device))
-    after = (fast.fast_nms.launches, patches.orb_patch_desc.launches, hamming.best2.launches)
+    after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_all_level_calls_count_one_launch(levels):
+    imgs, xs_l, ys_l = [list(col) for col in zip(*levels)]
+    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches)
+    fast.fast_nms_levels(imgs)
+    patches.orb_patch_desc_levels(imgs, xs_l, ys_l)
+    after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
