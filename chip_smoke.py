@@ -8,24 +8,34 @@ PyTorch built for CUDA. It
   1. prints the card (`nvidia-smi` name and power limit) and the versions;
   2. builds the port's CUDA kernels from `orbslam2_tpu_torch/csrc/`
      (into `build/kernels/`) and prints the build time;
-  3. holds every kernel against its plain PyTorch version on the card at
+  3. holds K1 and K2 against their plain PyTorch versions on the card at
      the main path's shapes (a rendered 752x480 stereo pair: one K2 launch
-     over its 8 levels x 2 images, one K1 launch over its 2400 keypoints;
-     1200x1200 for the Hamming kernel K3); K1 against the per-level plain
-     calls, which read each window from a reflect-padded copy of the
-     level; times the wrapper and the plain version with CUDA events around
-     back-to-back calls; and computes each kernel's bound (bytes or
-     operations at the published peaks) from the inputs;
+     over its 8 levels x 2 images, one K1 launch over its 2400 keypoints),
+     K1 against the per-level plain calls, which read each window from a
+     reflect-padded copy of the level; holds every mode of the Hamming
+     kernel K3 against its plain version (gate + `best2_plain`) on the
+     edge cases of `kernels/cases.py` and, in mask mode, on random and
+     tie-heavy 1200x1200 masks; times the wrapper and the plain version
+     with CUDA events around back-to-back calls; and computes each
+     kernel's bound (bytes or operations at the published peaks) from the
+     inputs;
   4. drives the main path, `System(..., device="cuda").track_stereo`, over
-     the 40-frame synthetic sequence of tests/test_tracking.py, checks
-     that every kernel was launched there (K1 and K2 exactly once per
-     frame), that >= 39 frames tracked with ATE RMSE < 0.06 m, and that
-     the first frames agree with the port's plain CPU path; times each
-     kernel alone by its `torch.profiler` durations (after the slice, so
-     that no profiler session precedes the slice's frames); profiles 5
-     more frames; prints each kernel's launches per frame, times, bound
-     and roofline share;
-  5. prints one JSON line describing the kernels, then the result line.
+     the 40-frame synthetic sequence of tests/test_tracking.py, recording
+     the arguments of every K3 call of frame 1 (mask mode) and of a
+     steady fused frame (stereo, frame and points modes); checks that
+     every kernel and K3 mode was launched there (K1, K2 and K3's stereo
+     mode exactly once per frame; on every fused frame one points launch
+     and no mask launch), that >= 39 frames tracked with ATE RMSE < 0.06
+     m, and that the first frames agree with the port's plain CPU path;
+     holds each K3 mode exactly against its plain version on the recorded
+     arguments and times it there; times each kernel alone by its
+     `torch.profiler` durations (after the slice, so that no profiler
+     session precedes the slice's frames); profiles 5 more frames (per
+     traced stage: host and device ms and device kernels per frame);
+     prints each kernel's launches per frame, times, bound and roofline
+     share;
+  5. prints one JSON line describing the kernels (one row per K3 mode),
+     then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
 CUDA card is visible, or when the port cannot be imported.
@@ -33,6 +43,7 @@ CUDA card is visible, or when the port cannot be imported.
 
 from __future__ import annotations
 
+import bisect
 import functools
 import json
 import statistics
@@ -47,13 +58,17 @@ from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.evaluation.ate import ate_rmse
-from orbslam2_tpu_torch.kernels import build
+from orbslam2_tpu_torch.kernels import build, cases
 from orbslam2_tpu_torch.ops import fast, hamming, orb, patches
 from orbslam2_tpu_torch.slam.system import System
 
 N_FRAMES = 40
 N_CPU_FRAMES = 12
 N_PROFILE_FRAMES = 5
+# frames whose K3 calls are recorded: frame 1 takes the reference-keyframe
+# path (mask mode), REC_FRAME is a steady fused frame
+REC_FRAMES = (1, 20)
+REC_FRAME = 20
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 and fp32 outside the
 # tensor cores; the integer and min/max operations of the kernels are
 # counted against the fp32 rate
@@ -67,20 +82,39 @@ K2_OPS_PER_PX = 16 + 128 + 32 + 10
 K1_FLOP_PER_KP = 2 * (48 * 42 * 7 + 42 * 42 * 7) + 4 * int(convert.IC_MASK.sum()) + 256
 # K3, per gated pair: xor, popcount and add for each of 8 words
 K3_OPS_PER_PAIR = 24
+K3_SOURCE = "orbslam2_tpu_torch/csrc/hamming_best2.cu"
+# name -> the kernel's name in the profiler's trace (a K3 mode is the
+# instantiation over its gate functor) and the TPU-side function it replaces
 KERNELS = {
-    "fast_nms": dict(
-        wrapper=fast.fast_nms_levels, kernel="fast_nms_kernel",
-        source="orbslam2_tpu_torch/csrc/fast_nms.cu", replaces="orbslam2_tpu/ops/fast.py:25",
-    ),
-    "orb_patch_desc": dict(
-        wrapper=patches.orb_patch_desc_levels, kernel="orb_patch_desc_kernel",
-        source="orbslam2_tpu_torch/csrc/orb_patch_desc.cu", replaces="orbslam2_tpu/ops/patches.py:103",
-    ),
-    "hamming_best2": dict(
-        wrapper=hamming.best2, kernel="hamming_best2_kernel",
-        source="orbslam2_tpu_torch/csrc/hamming_best2.cu", replaces="orbslam2_tpu/ops/hamming.py:27",
-    ),
+    "fast_nms": dict(kernel="fast_nms_kernel", source="orbslam2_tpu_torch/csrc/fast_nms.cu",
+                     replaces="orbslam2_tpu/ops/fast.py:25"),
+    "orb_patch_desc": dict(kernel="orb_patch_desc_kernel", source="orbslam2_tpu_torch/csrc/orb_patch_desc.cu",
+                           replaces="orbslam2_tpu/ops/patches.py:103"),
+    "hamming_best2:mask": dict(kernel="GateMask", source=K3_SOURCE, replaces="orbslam2_tpu/ops/hamming.py:27"),
+    "hamming_best2:stereo": dict(kernel="GateStereo", source=K3_SOURCE,
+                                 replaces="orbslam2_tpu/ops/matchers.py:189"),
+    "hamming_best2:frame": dict(kernel="GateFrame", source=K3_SOURCE,
+                                replaces="orbslam2_tpu/ops/matchers.py:256"),
+    "hamming_best2:points": dict(kernel="GatePoints", source=K3_SOURCE,
+                                 replaces="orbslam2_tpu/ops/matchers.py:440"),
 }
+K3_MODES = ("mask", "stereo", "frame", "points")
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch counter, by KERNELS name."""
+    c = {"fast_nms": fast.fast_nms_levels.launches, "orb_patch_desc": patches.orb_patch_desc_levels.launches,
+         "hamming_best2:mask": hamming.best2.launches}
+    c.update({f"hamming_best2:{m}": n for m, n in hamming.best2_gated.launches.items()})
+    return c
+
+
+def reset_launch_counts():
+    fast.fast_nms_levels.launches = 0
+    patches.orb_patch_desc_levels.launches = 0
+    hamming.best2.launches = 0
+    for m in hamming.best2_gated.launches:
+        hamming.best2_gated.launches[m] = 0
 
 
 def check(cond, msg):
@@ -211,47 +245,111 @@ def check_orb_patch_desc(levels, xs_l, ys_l):
     return ang_err, timing, bound(nbytes, K1_FLOP_PER_KP * n_kp), call
 
 
-def check_hamming_best2():
+def check_k3_edge_cases():
+    """Every K3 mode against its plain version on `kernels/cases.py`, and
+    mask mode on random and tie-heavy 1200x1200 masks."""
+    n = 0
+    for name, A, B, gate in cases.k3_cases("cuda"):
+        got, want = cases.k3(A, B, gate), cases.k3_plain(A, B, gate)
+        for g, w, label in zip(got, want, ("idx1", "d1", "idx2", "d2")):
+            check(torch.equal(g, w), f"hamming_best2 {label} differs from plain ({name})")
+        n += 1
     gen = torch.Generator(device="cuda").manual_seed(0)
     N = M = 1200
-    cases = {
+    words = {
         "random": torch.randint(-2**31, 2**31 - 1, (N + M, 8), generator=gen, device="cuda",
                                 dtype=torch.int64).to(torch.int32),
-        "ties": torch.tensor([0, 1, 3, -1, -2**31], device="cuda", dtype=torch.int32)[
+        "ties": torch.tensor(cases.TIE_WORDS, device="cuda")[
             torch.randint(0, 5, (N + M, 8), generator=gen, device="cuda")],
     }
-    err, timed, call = 0.0, None, None
-    for name, words in cases.items():
-        A, B = words[:N], words[N:]
+    for name, w in words.items():
         mask = torch.rand((N, M), generator=gen, device="cuda") < 0.05
         mask[:16] = False  # rows with no candidate
         mask[16, :] = False
         mask[16, 7] = True
-        got = hamming.best2(A, B, mask)
-        want = hamming.best2_plain(A, B, mask)
-        torch.cuda.synchronize()
-        for g, w, label in zip(got, want, ("idx1", "d1", "idx2", "d2")):
-            check(torch.equal(g, w), f"hamming_best2 {label} differs from plain ({name})")
-            err = max(err, float((g - w).abs().max()))
-        if timed is None:
-            call = functools.partial(hamming.best2, A, B, mask)
-            timed = dict(ms=cuda_ms(call), plain_ms=cuda_ms(lambda: hamming.best2_plain(A, B, mask)))
-            # descriptors and the gate read once, four int32 outputs per row;
-            # K3_OPS_PER_PAIR operations for each gated pair
-            nbytes = 32 * (N + M) + N * M + 16 * N
-            timed_bound = bound(nbytes, K3_OPS_PER_PAIR * int(mask.sum()))
-    print(f"K3 hamming_best2: exact (idx1, d1, idx2, d2) at {N}x{M}, random and tie-heavy")
-    return err, timed, timed_bound, call
+        for g, p in zip(hamming.best2(w[:N], w[N:], mask), hamming.best2_plain(w[:N], w[N:], mask)):
+            check(torch.equal(g, p), f"hamming_best2 (mask) differs from plain ({name} 1200x1200)")
+    torch.cuda.synchronize()
+    print(f"K3 hamming_best2: every mode exact on {n} edge cases (boundaries, complement, no candidate, "
+          f"M == 0, N == 1, inf/NaN rows, ties) and mask mode on random and tie-heavy 1200x1200")
 
 
-def run_slice(world, cfg, frames, device):
+def k3_record(mode, A, B, tensors, oct_mode):
+    """(A, B, gate) of one K3 call from the arguments of `hamming._launch`."""
+    if mode == "mask":
+        return A, B, tensors["mask"]
+    fields = {k: tensors[k] for k in hamming.Gate._fields if k in tensors}
+    return A, B, hamming.Gate(mode=mode, oct_mode=oct_mode, **fields)
+
+
+def k3_bound(A, B, gate):
+    """Bound of one K3 call: bytes of the descriptors, the row and column
+    vectors and the outputs (or of the mask in mask mode; the gated modes'
+    sort stays in shared memory); K3_OPS_PER_PAIR operations per gated
+    pair."""
+    N, M = A.shape[0], B.shape[0]
+    if isinstance(gate, hamming.Gate):
+        vec = [gate.row_uv, gate.row_r, gate.row_oct, gate.row_valid, gate.col_uv, gate.col_oct,
+               gate.col_valid, gate.row_umin, gate.row_ur, gate.col_ur]
+        nbytes = sum(t.numel() * t.element_size() for t in vec if t is not None)
+        pairs = int(hamming.gate_mask(gate).sum())
+    else:
+        nbytes, pairs = N * M, int(gate.sum())
+    return bound(nbytes + 32 * (N + M) + 16 * N, K3_OPS_PER_PAIR * pairs), pairs
+
+
+def check_k3_main_path(calls):
+    """Each K3 mode exactly against its plain version on the arguments the
+    main path gave it (recorded during the slice); times each mode there.
+    Returns {KERNELS name: (max_abs_err, times, bound, timed call)}."""
+    out = {}
+    for frame in sorted(calls, key=lambda f: f != REC_FRAME):  # time the steady frame's calls
+        for mode, A, B, gate in calls[frame]:
+            got, want = cases.k3(A, B, gate), cases.k3_plain(A, B, gate)
+            torch.cuda.synchronize()
+            for g, w, label in zip(got, want, ("idx1", "d1", "idx2", "d2")):
+                check(torch.equal(g, w), f"hamming_best2 ({mode}) {label} differs from plain on frame {frame}")
+            name = f"hamming_best2:{mode}"
+            if name in out:  # a retry of the frame matcher: checked, timed once
+                continue
+            (b_ms, b_by), pairs = k3_bound(A, B, gate)
+            call = functools.partial(cases.k3, A, B, gate)
+            timing = dict(ms=cuda_ms(call), plain_ms=cuda_ms(functools.partial(cases.k3_plain, A, B, gate)))
+            print(f"K3 {mode}: exact on frame {frame}'s main-path arguments, {A.shape[0]}x{B.shape[0]}, "
+                  f"{pairs} gated pairs")
+            out[name] = (0.0, timing, (b_ms, b_by), call)
+    for mode in K3_MODES:
+        check(f"hamming_best2:{mode}" in out, f"no K3 {mode} call was recorded on frames {REC_FRAMES}")
+    return out
+
+
+def run_slice(world, cfg, frames, device, record=()):
+    """Track `frames`; returns (system, poses, ms per frame, launch counts
+    per frame, fused flag per frame, recorded K3 calls). The K3 calls of
+    the frames in `record` are recorded by wrapping `hamming._launch`, the
+    one launch path below the counted wrappers: {frame: [(mode, A, B,
+    gate)]}."""
     system = System(None, cfg, device=device)
-    est, ms = [], []
+    est, ms, per_frame, fused, calls = [], [], [], [], {}
+    launch = hamming._launch
+
+    def recording(mode, A, B, tensors, oct_mode="both"):
+        calls.setdefault(i, []).append((mode, *k3_record(mode, A, B, tensors, oct_mode)))
+        return launch(mode, A, B, tensors, oct_mode)
+
     for i, (imL, imR) in enumerate(frames):
-        t0 = time.perf_counter()
-        est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
-        ms.append((time.perf_counter() - t0) * 1e3)
-    return system, est, ms
+        fused.append(system.tracker._can_fuse())
+        before = launch_counts()
+        if i in record:
+            hamming._launch = recording
+        try:
+            t0 = time.perf_counter()
+            est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            hamming._launch = launch
+        per_frame.append({k: v - before[k] for k, v in launch_counts().items()})
+    return system, est, ms, per_frame, fused, calls
 
 
 def profile_frames(system, frames, first):
@@ -294,11 +392,15 @@ def profile_frames(system, frames, first):
     print(f"profile over {n} frames (profiler on): wall {wall_ms / n:.2f} ms/frame, "
           f"{len(kernels) / n:.0f} device kernels/frame, device busy {busy_ms / n:.3f} ms/frame "
           f"= {100 * busy_ms / wall_ms:.1f}% of wall (idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
-    for e in prof.key_averages():
-        if e.key.startswith("stage:") and e.cpu_time_total > 0:
-            dev = getattr(e, "device_time_total", 0.0)
-            print(f"  {e.key[6:]}: {e.count / n:.1f} calls/frame, host {e.cpu_time_total / n / 1e3:.2f} "
-                  f"ms/frame, device {dev / n / 1e3:.3f} ms/frame")
+    per_stage = stage_kernels(prof)
+    n_in_stages = sum(len(st["kernels"]) for st in per_stage.values())
+    print(f"  device kernels launched inside a traced stage: {n_in_stages / n:.1f}/frame")
+    for name, st in per_stage.items():
+        ks = st["kernels"]
+        ours = sum(any(k["kernel"] in e.name for k in KERNELS.values()) for e in ks)
+        print(f"  {name}: {st['calls'] / n:.1f} calls/frame, host {st['host_us'] / n / 1e3:.2f} ms/frame, "
+              f"device {sum(e.time_range.elapsed_us() for e in ks) / n / 1e3:.3f} ms/frame, "
+              f"{len(ks) / n:.1f} device kernels/frame ({ours / n:.1f} of the port's kernels)")
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -306,6 +408,31 @@ def profile_frames(system, frames, first):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"  kernel {name[:90]}: {t / n / 1e3:.3f} ms/frame, {c / n:.0f} launches/frame")
     return wall_ms / n, busy_ms / wall_ms
+
+
+def stage_kernels(prof):
+    """{stage: calls, host time and device events} of the `stage:` ranges of
+    a profile. A device event (kernel or copy) belongs to the stage whose
+    host time range holds the CUDA runtime call that launched it, matched
+    by correlation id: this covers the kernels launched through ctypes,
+    which the profiler attaches to no PyTorch operator."""
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    device = {e.id: e for e in evs if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:")}
+    calls = sorted((e.time_range.start, e.id) for e in evs
+                   if e.device_type == DeviceType.CPU and e.name.startswith("cu") and e.id in device)
+    starts = [t for t, _ in calls]
+    out = {}
+    for e in evs:
+        if e.device_type == DeviceType.CPU and e.name.startswith("stage:"):
+            st = out.setdefault(e.name[6:], dict(calls=0, host_us=0.0, kernels=[]))
+            st["calls"] += 1
+            st["host_us"] += e.cpu_time_total
+            lo = bisect.bisect_left(starts, e.time_range.start)
+            hi = bisect.bisect_right(starts, e.time_range.end)
+            st["kernels"] += [device[c] for _, c in calls[lo:hi]]
+    return out
 
 
 def center(T):
@@ -336,23 +463,24 @@ def main():
     results = {
         "fast_nms": check_fast_nms(levels),
         "orb_patch_desc": check_orb_patch_desc(levels, xs_l, ys_l),
-        "hamming_best2": check_hamming_best2(),
     }
+    check_k3_edge_cases()
 
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
-    system, est, ms = run_slice(world, cfg, frames, "cuda")
+    reset_launch_counts()
+    system, est, ms, per_frame, fused, calls = run_slice(world, cfg, frames, "cuda", record=REC_FRAMES)
     torch.cuda.synchronize()
-    launches = {name: k["wrapper"].launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     n_tracked = sum(T is not None for T in est)
     pairs = [(g, e) for g, e in zip(poses_gt, est) if e is not None]
     rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
     steady = ms[2:]
     print(f"slice: {n_tracked}/{N_FRAMES} frames tracked, ATE RMSE {rmse:.4f} m, "
-          f"{system.map.n_keyframes()} keyframes; ms/frame p50 {statistics.median(steady):.2f} "
-          f"max {max(steady):.2f} (frames 2..{N_FRAMES - 1}; first two {ms[0]:.1f}, {ms[1]:.1f}); "
-          f"launches {launches}")
+          f"{system.map.n_keyframes()} keyframes, {sum(fused)} fused frames; ms/frame p50 "
+          f"{statistics.median(steady):.2f} max {max(steady):.2f} (frames 2..{N_FRAMES - 1}; first two "
+          f"{ms[0]:.1f}, {ms[1]:.1f}); launches {launches}")
     print(system.shutdown())
+    check(fused[REC_FRAME], f"frame {REC_FRAME} was not a fused frame")
+    results.update(check_k3_main_path(calls))
     # kernel profiling after the slice, so that no profiler session runs
     # before the slice's frames, and before the profile phase: profiler
     # sessions after that long one have traced no kernels on the H100
@@ -363,24 +491,31 @@ def main():
     check(rmse < 0.06, f"ATE RMSE {rmse} >= 0.06 m")
     for name, n in launches.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
-    for name in ("fast_nms", "orb_patch_desc"):  # one launch per frame over every level
+    # one launch per frame: K1 and K2 over every level, K3's stereo mode
+    for name in ("fast_nms", "orb_patch_desc", "hamming_best2:stereo"):
         check(launches[name] == N_FRAMES, f"{name}: {launches[name]} launches over {N_FRAMES} frames")
+    for i, (f, c) in enumerate(zip(fused, per_frame)):
+        if f:  # a fused frame: one points launch, one or two (the retry) frame launches, no mask
+            check(c["hamming_best2:points"] == 1 and c["hamming_best2:mask"] == 0
+                  and c["hamming_best2:frame"] in (1, 2), f"fused frame {i}: K3 launches {c}")
+    on_fused = {m: sum(c[f"hamming_best2:{m}"] for c, f in zip(per_frame, fused) if f) for m in K3_MODES}
+    print(f"K3 launches on the {sum(fused)} fused frames: {on_fused}")
     rows = []
     for name, k in KERNELS.items():
         err, t, (bound_ms, bound_by), _ = results[name]
-        per_frame = launches[name] / N_FRAMES
-        print(f"{name}: {per_frame:.3f} launches/frame; per launch: wrapper {t['ms']:.4f} ms, "
+        per_frame_n = launches[name] / N_FRAMES
+        print(f"{name}: {per_frame_n:.3f} launches/frame; per launch: wrapper {t['ms']:.4f} ms, "
               f"device {t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}), roofline share {bound_ms / t['device_ms']:.2%}; per frame: wrapper "
-              f"{t['ms'] * per_frame:.4f} ms, device {t['device_ms'] * per_frame:.4f} ms; {smi}")
+              f"{t['ms'] * per_frame_n:.4f} ms, device {t['device_ms'] * per_frame_n:.4f} ms; {smi}")
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-            "launches": launches[name], "launches_per_frame": per_frame, "max_abs_err": err,
+            "launches": launches[name], "launches_per_frame": per_frame_n, "max_abs_err": err,
             **t, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
     # the plain CPU path on the first frames: same states, poses within 1 cm
-    ref, est_cpu, _ = run_slice(world, cfg, frames[:N_CPU_FRAMES], "cpu")
+    est_cpu = run_slice(world, cfg, frames[:N_CPU_FRAMES], "cpu")[1]
     worst = 0.0
     for i, (a, b) in enumerate(zip(est[:N_CPU_FRAMES], est_cpu)):
         check((a is None) == (b is None), f"frame {i}: cuda/cpu tracking state differs")

@@ -1,5 +1,6 @@
-"""Device-only time per frame of the front end's kernels K2 and K1 in one
-source tree of the port, for comparing two trees on one card.
+"""Device-only time per frame of the front end's kernels K2 and K1, and
+per matcher call of the Hamming kernel K3, in one source tree of the port,
+for comparing two trees on one card.
 
     python3 kernel_device_ab.py [--tree DIR] [--frames N]
 
@@ -19,7 +20,17 @@ frame, it sums for each of N frames the device durations of each kernel's
 launches, and of the reflect-pad kernels apart, and prints the medians
 over the frames (a frame whose trace lost a launch is dropped and
 counted), with the card's `nvidia-smi` name and power limit, as one JSON
-line. It exits non-zero when no CUDA card is visible.
+line.
+
+For K3 it tracks the synthetic sequence with that tree's `System` on the
+card up to frame 20 (a steady fused frame), records the arguments of that
+frame's `stereo_match`, `search_by_projection_frame` and
+`search_by_projection_points` calls, and times each call again the same
+way: per call, the device time of its K3 launch, of all its device kernels
+(the gate construction, where the tree builds one, and the post-processing
+included) and their count.
+
+It exits non-zero when no CUDA card is visible.
 """
 
 from __future__ import annotations
@@ -59,6 +70,43 @@ def summarize(frames, name):
     sums = [sum(f[name]) for f, c in zip(frames, counts) if c == per]
     return {"device_ms_per_frame": statistics.median(sums) if per else 0.0,
             "launches_per_frame": per, "frames_dropped": len(frames) - len(sums)}
+
+
+K3_FRAME = 20
+MATCHERS = ("stereo_match", "search_by_projection_frame", "search_by_projection_points")
+
+
+def matcher_calls(world, n_features=1200):
+    """The tree's matcher calls of frame K3_FRAME of the synthetic sequence,
+    tracked on the card: {matcher name: (args, kwargs)} (the first call of
+    each)."""
+    from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
+    from orbslam2_tpu_torch.ops import matchers
+    from orbslam2_tpu_torch.slam.system import System
+
+    cfg = SlamConfig(camera=CameraConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy, bf=world.bf,
+                                         width=world.width, height=world.height, fps=20.0),
+                     orb=OrbConfig(n_features=n_features))
+    _, frames = world.render_sequence(K3_FRAME + 1, step=0.06)
+    system = System(None, cfg, device="cuda")
+    for i, (imL, imR) in enumerate(frames[:K3_FRAME]):
+        system.track_stereo(imL, imR, timestamp=i / 20.0)
+    calls, originals = {}, {name: getattr(matchers, name) for name in MATCHERS}
+
+    def recording(name):
+        def run(*args, **kwargs):
+            calls.setdefault(name, (args, kwargs))
+            return originals[name](*args, **kwargs)
+        return run
+
+    for name in MATCHERS:
+        setattr(matchers, name, recording(name))
+    try:
+        system.track_stereo(*frames[K3_FRAME], timestamp=K3_FRAME / 20.0)
+    finally:
+        for name, fn in originals.items():
+            setattr(matchers, name, fn)
+    return {name: (originals[name], *calls[name]) for name in MATCHERS}
 
 
 def main():
@@ -111,6 +159,18 @@ def main():
         frames = frame_kernels(fn, (kernel, "reflection_pad"), args.frames)
         out[name] = {**summarize(frames, kernel),
                      "reflect_pad": summarize(frames, "reflection_pad")}
+    for name, (fn, a, kw) in matcher_calls(world).items():
+        call = lambda: fn(*a, **kw)  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        frames = frame_kernels(call, ("hamming_best2_kernel", ""), args.frames)
+        k3, whole = summarize(frames, "hamming_best2_kernel"), summarize(frames, "")
+        out[f"k3_{name}"] = {  # per call
+            "k3_device_ms": k3["device_ms_per_frame"], "k3_launches": k3["launches_per_frame"],
+            "call_device_ms": whole["device_ms_per_frame"], "call_kernels": whole["launches_per_frame"],
+            "calls_dropped": k3["frames_dropped"],
+        }
     print(json.dumps(out))
 
 

@@ -39,7 +39,7 @@ NVCC_FLAGS = [
 SIGNATURES = {
     "orb_patch_desc_levels_launch": (1, 0),
     "fast_nms_levels_launch": (1, 0),
-    "hamming_best2_launch": (7, 2),
+    "hamming_best2_launch": (1, 0),
 }
 
 _lock = threading.Lock()

@@ -6,12 +6,19 @@ DescriptorDistance, src/ORBmatcher.cpp:1490-1508). Descriptors are int32
 popcount, so the plain version counts bits with a SWAR sum on int64 (no
 arithmetic shift of a negative int32 is ever taken).
 
-`best2` is the matchers' entry point: the masked best and second-best
-candidate per row. On a CUDA tensor it launches the hand-written kernel
-`csrc/hamming_best2.cu`, which never materialises the [N, M] distances.
+K3 (`csrc/hamming_best2.cu`) is the matchers' masked best and second-best
+candidate per row, never materialising the [N, M] distances. It has four
+modes: `best2` takes a bool [N, M] mask (search_by_bow); `best2_gated`
+takes a `Gate`, the geometric gate of one of the three tracking matchers
+as per-row and per-column vectors, and on a CUDA tensor evaluates it in
+the kernel, so no [N, M] gate is built either. Its plain version builds
+the gate with `gate_mask` and takes `best2_plain`.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -89,32 +96,234 @@ def best2_plain(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor):
     return _best2_from_dist(masked_hamming(A, B, mask), mask)
 
 
+# ---------------------------------------------------------------------------
+# the matchers' geometric gates (K3's gated modes)
+# ---------------------------------------------------------------------------
+
+
+class Gate(NamedTuple):
+    """The geometric gate of one matcher call as per-row and per-column
+    vectors. Rows are the queries (left keypoints, projected points),
+    columns the candidates (right or current keypoints). The matchers
+    compute `row_r` and `row_umin` with their plain expressions; the pair
+    test is `gate_mask`'s, in the kernel as in the plain version."""
+
+    mode: str  # "stereo", "frame" or "points"
+    row_uv: torch.Tensor  # [N, 2] float32
+    row_r: torch.Tensor  # [N] float32: band (stereo) or window (frame, points) half-size
+    row_oct: torch.Tensor  # [N] int32: left octave, source octave, predicted level
+    row_valid: torch.Tensor  # [N] bool
+    col_uv: torch.Tensor  # [M, 2] float32
+    col_oct: torch.Tensor  # [M] int32
+    col_valid: torch.Tensor  # [M] bool
+    row_umin: Optional[torch.Tensor] = None  # stereo: uL - max_d
+    row_ur: Optional[torch.Tensor] = None  # points: predicted right u
+    col_ur: Optional[torch.Tensor] = None  # points: right u, < 0 where none
+    oct_mode: str = "both"  # frame: "forward", "backward" or "both"
+
+
+def _window(g: Gate) -> torch.Tensor:
+    du = g.col_uv[None, :, 0] - g.row_uv[:, 0, None]
+    dv = g.col_uv[None, :, 1] - g.row_uv[:, 1, None]
+    return (torch.abs(du) <= g.row_r[:, None]) & (torch.abs(dv) <= g.row_r[:, None])
+
+
+def _gate_stereo(g: Gate) -> torch.Tensor:
+    """stereo_match: row band, octave +-1, uL - max_d <= uR <= uL."""
+    band = torch.abs(g.col_uv[None, :, 1] - g.row_uv[:, 1, None]) <= g.row_r[:, None]
+    octave_ok = torch.abs(g.col_oct[None, :] - g.row_oct[:, None]) <= 1
+    uR = g.col_uv[None, :, 0]
+    disp_ok = (uR >= g.row_umin[:, None]) & (uR <= g.row_uv[:, 0, None])
+    return band & octave_ok & disp_ok & g.row_valid[:, None] & g.col_valid[None, :]
+
+
+def _gate_frame(g: Gate) -> torch.Tensor:
+    """search_by_projection_frame: window, forward/backward octave gate."""
+    oc, ol = g.col_oct[None, :], g.row_oct[:, None]
+    if g.oct_mode == "forward":
+        oct_gate = oc >= ol
+    elif g.oct_mode == "backward":
+        oct_gate = oc <= ol
+    else:
+        oct_gate = (oc >= ol - 1) & (oc <= ol + 1)
+    return _window(g) & oct_gate & g.row_valid[:, None] & g.col_valid[None, :]
+
+
+def _gate_points(g: Gate) -> torch.Tensor:
+    """search_by_projection_points: window, octave in [pred-1, pred],
+    stereo right-coordinate agreement."""
+    oc, pl = g.col_oct[None, :], g.row_oct[:, None]
+    oct_gate = (oc >= pl - 1) & (oc <= pl)
+    has_stereo = g.col_ur[None, :] >= 0
+    er = torch.abs(g.col_ur[None, :] - g.row_ur[:, None])
+    stereo_gate = torch.where(has_stereo, er <= g.row_r[:, None], True)
+    return _window(g) & oct_gate & stereo_gate & g.row_valid[:, None] & g.col_valid[None, :]
+
+
+_GATES = {"stereo": _gate_stereo, "frame": _gate_frame, "points": _gate_points}
+
+
+def gate_mask(g: Gate) -> torch.Tensor:
+    """The plain [N, M] bool gate of `g` (the matchers' gate expressions)."""
+    return _GATES[g.mode](g)
+
+
+def best2_gated_plain(A: torch.Tensor, B: torch.Tensor, g: Gate):
+    """Plain version of K3's gated modes: `best2_plain` under `gate_mask`."""
+    return best2_plain(A, B, gate_mask(g))
+
+
+# the gated modes' counting sort: v buckets, and the relative part of the
+# slack around a row's band, far above float32's rounding of v +- r at any
+# magnitude (the kernel's NB and 0x1p-16f)
+N_BUCKETS = 1024
+RANGE_SLACK_REL = 2.0**-16
+
+
+def _bucket(v: torch.Tensor, v0, scale) -> torch.Tensor:
+    x = torch.floor((v - v0) * scale)
+    return torch.nan_to_num(x, nan=0.0).clamp(0, N_BUCKETS - 1).to(torch.int64)
+
+
+def candidate_buckets(g: Gate):
+    """The gated kernel's candidate rule, for the tests: (bucket of each
+    column, -1 for a column no gate can pass (invalid, or v NaN); first and
+    last bucket each row scans, last < first for an empty row). Buckets
+    split the finite v range of those columns into N_BUCKETS; a row scans
+    the buckets of [v - r - slack, v + r + slack], slack = 1 + (|v| + r)
+    2^-16, nothing if it is invalid or that band is NaN. Mirrors
+    `bucket_sort` and the row search of `hamming_best2_kernel` in float32;
+    every pair the gate keeps lies inside."""
+    cv = g.col_uv[:, 1]
+    placed = g.col_valid & ~torch.isnan(cv)
+    finite = cv[placed & torch.isfinite(cv)]
+    v0 = finite.min() if finite.numel() else torch.tensor(0.0)
+    span = finite.max() - v0 if finite.numel() else torch.tensor(0.0)
+    ok_span = bool(span > 0) and bool(torch.isfinite(span))
+    scale = torch.tensor(float(N_BUCKETS)) / span if ok_span else torch.tensor(0.0)
+    col_bucket = torch.where(placed, _bucket(cv, v0, scale), -1)
+    v, r = g.row_uv[:, 1], g.row_r
+    slack = 1.0 + (torch.abs(v) + r) * RANGE_SLACK_REL
+    lo, hi = v - r - slack, v + r + slack
+    scanned = g.row_valid & (lo <= hi)
+    first = torch.where(scanned, _bucket(lo, v0, scale), 0)
+    last = torch.where(scanned, _bucket(hi, v0, scale), -1)
+    return col_bucket, first, last
+
+
+# ---------------------------------------------------------------------------
+# K3 wrappers
+# ---------------------------------------------------------------------------
+
+_MODES = {"mask": 0, "stereo": 1, "frame": 2, "points": 3}
+_OCT_MODES = {"forward": 0, "backward": 1, "both": 2}
+_PTRS = (
+    "a", "b", "mask", "row_uv", "row_r", "row_umin", "row_ur", "row_oct", "row_valid", "col_uv",
+    "col_ur", "col_oct", "col_valid", "out",
+)
+#: the gated modes sort their columns in shared memory, 4 bytes per column
+MAX_COLUMNS = 16384
+
+
+class _Args(ctypes.Structure):
+    """`Best2Args` of csrc/hamming_best2.cu: the kernel's parameter struct.
+    The launcher sets `n_blocks` to the blocks it launched."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in _PTRS] + [
+        (name, ctypes.c_int) for name in ("n", "m", "mode", "oct_mode", "n_blocks")
+    ]
+
+
+def _device(A: torch.Tensor, name: str) -> torch.device:
+    """A's device for a kernel launch; raises on a device other than CUDA."""
+    if A.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {A.device}")
+    return A.device
+
+
+def _launch(mode: str, A, B, tensors: dict, oct_mode: str = "both"):
+    """One K3 launch; tensors maps Best2Args pointer names to tensors that
+    the caller has checked. Returns (idx1, d1, idx2, d2) int32 [N] views of
+    one [4, N] output."""
+    N, M = A.shape[0], B.shape[0]
+    if A.dtype != torch.int32 or B.dtype != torch.int32 or A.shape[1:] != (8,) or B.shape[1:] != (8,):
+        raise ValueError(f"K3 takes int32 [N, 8] descriptors, got {A.dtype} {tuple(A.shape)}, "
+                         f"{B.dtype} {tuple(B.shape)}")
+    if B.device != A.device:
+        raise ValueError("K3: tensors on different devices")
+    out = torch.empty((4, N), dtype=torch.int32, device=A.device)
+    A, B = _aligned(A), _aligned(B)
+    args = _Args(a=A.data_ptr(), b=B.data_ptr(), out=out.data_ptr(), n=N, m=M, mode=_MODES[mode],
+                 oct_mode=_OCT_MODES[oct_mode])
+    for name, t in tensors.items():
+        setattr(args, name, t.data_ptr())
+    build.launch("hamming_best2_launch", args)
+    return tuple(out.unbind(0)), args.n_blocks > 0
+
+
 def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor):
-    """K3 wrapper: the plain version for CPU tensors, the CUDA kernel
-    `hamming_best2_launch` for CUDA tensors."""
+    """K3 in mask mode: the plain version for CPU tensors, one launch of
+    `hamming_best2_launch` for CUDA tensors. A row with no candidate, and
+    every row when M == 0, answers (0, 256, 0, 256)."""
     if A.device.type == "cpu":
         return best2_plain(A, B, mask)
-    if A.device.type != "cuda":
-        raise ValueError(f"best2: unsupported device {A.device}")
+    dev = _device(A, "best2")
     N, M = A.shape[0], B.shape[0]
-    if A.dtype != torch.int32 or B.dtype != torch.int32 or mask.dtype != torch.bool:
-        raise TypeError("best2 takes int32 descriptors and a bool mask")
-    if A.shape[1:] != (8,) or B.shape[1:] != (8,) or mask.shape != (N, M):
-        raise ValueError(f"best2: bad shapes {tuple(A.shape)} {tuple(B.shape)} {tuple(mask.shape)}")
-    if B.device != A.device or mask.device != A.device:
-        raise ValueError("best2: tensors on different devices")
-    out = [torch.empty(N, dtype=torch.int32, device=A.device) for _ in range(4)]
-    if N == 0:
-        return tuple(out)
-    if M == 0:
-        raise ValueError("best2: no candidates (M == 0)")
-    A, B, mask = _aligned(A), _aligned(B), mask.contiguous()
-    build.launch("hamming_best2_launch", A, B, mask, *out, N, M)
-    best2.launches += 1
-    return tuple(out)
+    if mask.dtype != torch.bool or mask.shape != (N, M) or mask.device != dev:
+        raise ValueError(f"best2: mask must be bool [{N}, {M}] on {dev}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    out, launched = _launch("mask", A, B, {"mask": mask.contiguous()})
+    best2.launches += launched
+    return out
 
 
 best2.launches = 0
+
+
+def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
+    """K3 in a gated mode (`g.mode`): rows A [N, 8] against columns B
+    [M, 8] under the gate `g`. CPU tensors take `best2_gated_plain`; CUDA
+    tensors take one launch of `hamming_best2_launch` (which sorts the
+    columns by v itself), with no [N, M] tensor."""
+    if A.device.type == "cpu":
+        return best2_gated_plain(A, B, g)
+    _device(A, "best2_gated")
+    out, launched = _launch_gated(A, B, g)
+    best2_gated.launches[g.mode] += launched
+    return out
+
+
+#: launches per gated mode
+best2_gated.launches = {"stereo": 0, "frame": 0, "points": 0}
+
+
+def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
+    """`best2_gated`'s launch: checks the gate's vectors and launches the
+    mode (see `_launch`)."""
+    dev, N, M = A.device, A.shape[0], B.shape[0]
+    if M > MAX_COLUMNS:
+        raise ValueError(f"best2_gated takes at most {MAX_COLUMNS} columns, got {M}")
+    want = {
+        "row_uv": (torch.float32, (N, 2)), "row_r": (torch.float32, (N,)),
+        "row_oct": (torch.int32, (N,)), "row_valid": (torch.bool, (N,)),
+        "col_uv": (torch.float32, (M, 2)), "col_oct": (torch.int32, (M,)),
+        "col_valid": (torch.bool, (M,)),
+    }
+    if g.mode == "stereo":
+        want["row_umin"] = (torch.float32, (N,))
+    elif g.mode == "points":
+        want["row_ur"] = (torch.float32, (N,))
+        want["col_ur"] = (torch.float32, (M,))
+    elif g.mode != "frame":
+        raise ValueError(f"best2_gated: unknown mode {g.mode!r}")
+    tensors = {}
+    for name, (dtype, shape) in want.items():
+        t = getattr(g, name)
+        if t is None or t.dtype != dtype or tuple(t.shape) != shape or t.device != dev:
+            got = None if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            raise ValueError(f"best2_gated ({g.mode}): {name} must be {dtype} {shape} on {dev}, got {got}")
+        tensors[name] = t.contiguous()
+    return _launch(g.mode, A, B, tensors, g.oct_mode)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

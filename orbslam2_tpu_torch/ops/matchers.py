@@ -3,9 +3,12 @@ matching, rotation-consistency filtering.
 
 Port of the parts of orbslam2_tpu/ops/matchers.py that the stereo
 tracking path calls (reference src/ORBmatcher.cpp). Each matcher is a
-dense masked all-pairs problem: the geometric gates are ANDed into a
-boolean [N, M] mask in plain PyTorch, and kernel K3 (`hamming.best2`)
-takes the masked Hamming best and second best per row.
+gated all-pairs problem: it computes the per-row parts of its geometric
+gate (band or window half-size) with the plain expressions, and kernel K3
+(`hamming.best2_gated`) takes the gated Hamming best and second best per
+row, evaluating the pairwise gate itself on a CUDA tensor; on a CPU
+tensor the gate is the plain [N, M] mask of `hamming.gate_mask`.
+`search_by_bow` keeps a plain mask (`hamming.best2`).
 
 The JAX package's one-hot matmuls that stood in for gathers and scatters
 on the TPU (`_choice_matrix`, `_fetch`, `lookup_level`) are plain indexing
@@ -84,13 +87,11 @@ def stereo_match(uvL, octL, descL, validL, uvR, octR, descR, validR,
     th_orb = (hamming.TH_HIGH + hamming.TH_LOW) // 2
     max_d = bf / min_z
 
-    band = torch.abs(uvR[None, :, 1] - uvL[:, 1, None]) <= 2.0 * scale_factors[octL.long()][:, None]
-    octave_ok = torch.abs(octR[None, :] - octL[:, None]) <= 1
-    uL = uvL[:, 0, None]
-    uR = uvR[None, :, 0]
-    disp_ok = (uR >= uL - max_d) & (uR <= uL)
-    mask = band & octave_ok & disp_ok & validL[:, None] & validR[None, :]
-    best_idx, best_dist, _, _ = hamming.best2(descL, descR, mask)
+    gate = hamming.Gate(
+        "stereo", uvL, 2.0 * scale_factors[octL.long()], octL, validL, uvR, octR, validR,
+        row_umin=uvL[:, 0] - max_d,
+    )
+    best_idx, best_dist, _, _ = hamming.best2_gated(descL, descR, gate)
 
     u_right = uvR[best_idx.long(), 0]
     disparity = uvL[:, 0] - u_right
@@ -124,21 +125,10 @@ def search_by_projection_frame(
     forward/backward octave gating. Returns (point index per current
     keypoint [-1 none], distance)."""
     radius = th * scale_factors[oct_last.long()]  # [M]
-    du = uv_cur[None, :, 0] - uv_proj[:, 0, None]  # [M,N]
-    dv = uv_cur[None, :, 1] - uv_proj[:, 1, None]
-    window = (torch.abs(du) <= radius[:, None]) & (torch.abs(dv) <= radius[:, None])
-
-    oc = oct_cur[None, :]
-    ol = oct_last[:, None]
-    if forward:
-        oct_gate = oc >= ol
-    elif backward:
-        oct_gate = oc <= ol
-    else:
-        oct_gate = (oc >= ol - 1) & (oc <= ol + 1)
-
-    mask = window & oct_gate & valid_proj[:, None] & valid_cur[None, :]
-    best_idx, best_dist, _, _ = hamming.best2(desc_last, desc_cur, mask)
+    oct_mode = "forward" if forward else "backward" if backward else "both"
+    gate = hamming.Gate("frame", uv_proj, radius, oct_last, valid_proj, uv_cur, oct_cur, valid_cur,
+                        oct_mode=oct_mode)
+    best_idx, best_dist, _, _ = hamming.best2_gated(desc_last, desc_cur, gate)
     ok = best_dist <= hamming.TH_HIGH
     if check_rotation:
         ok = rotation_consistency_mask(angle_last, angle_cur[best_idx.long()], ok)
@@ -159,19 +149,9 @@ def search_by_projection_points(
     per keypoint [-1 none], distance)."""
     r_base = torch.where(view_cos > 0.998, 2.5, 4.0)
     radius = th * r_base * scale_factors[level_pt.long()]
-
-    du = uv_cur[None, :, 0] - uv_pt[:, 0, None]  # [P,N]
-    dv = uv_cur[None, :, 1] - uv_pt[:, 1, None]
-    window = (torch.abs(du) <= radius[:, None]) & (torch.abs(dv) <= radius[:, None])
-    oc = oct_cur[None, :]
-    pl = level_pt[:, None]
-    oct_gate = (oc >= pl - 1) & (oc <= pl)
-    has_stereo = ur_cur[None, :] >= 0
-    er = torch.abs(ur_cur[None, :] - ur_pt[:, None])
-    stereo_gate = torch.where(has_stereo, er <= radius[:, None], True)
-
-    mask = window & oct_gate & stereo_gate & valid_pt[:, None] & valid_cur[None, :]
-    best_idx, best, second_idx, second = hamming.best2(desc_pt, desc_cur, mask)
+    gate = hamming.Gate("points", uv_pt, radius, level_pt, valid_pt, uv_cur, oct_cur, valid_cur,
+                        row_ur=ur_pt, col_ur=ur_cur)
+    best_idx, best, second_idx, second = hamming.best2_gated(desc_pt, desc_cur, gate)
 
     best_oct = oct_cur[best_idx.long()]
     second_oct = oct_cur[second_idx.long()]

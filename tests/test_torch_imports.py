@@ -92,18 +92,29 @@ def test_wrappers_refuse_other_devices():
     d = torch.zeros((3, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         hamming.best2(d, d, torch.zeros((3, 3), dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError):
+        hamming.best2_gated(d, d, _gate("meta"))
+
+
+def _gate(device):
+    z = lambda *shape, dtype=torch.float32: torch.zeros(shape, dtype=dtype, device=device)  # noqa: E731
+    return hamming.Gate("points", z(3, 2), z(3), z(3, dtype=torch.int32), z(3, dtype=torch.bool),
+                        z(3, 2), z(3, dtype=torch.int32), z(3, dtype=torch.bool), row_ur=z(3), col_ur=z(3))
 
 
 def test_cpu_tensors_take_the_plain_version():
     before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
+    gated_before = dict(hamming.best2_gated.launches)
     img = torch.rand((2, 48, 64)) * 255
     fast.fast_nms(img)
     xs = torch.full((2, 3), 20, dtype=torch.int32)
     patches.orb_patch_desc(img, xs, xs)
     d = torch.zeros((3, 8), dtype=torch.int32)
     hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool))
+    hamming.best2_gated(d, d, _gate("cpu"))
     after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     assert after == before
+    assert hamming.best2_gated.launches == gated_before
 
 
 def test_kernel_library_key_tracks_sources():

@@ -5,7 +5,7 @@ none (a CUDA kernel has no interpret mode). On the card:
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 
-Stated tolerances: K2 (fast_nms) and K3 (hamming_best2) exact; K1
+Stated tolerances: K2 (fast_nms) and K3 (hamming_best2, every mode) exact; K1
 (orb_patch_desc) angle within 1e-4 rad and descriptor bit error rate < 1%
 (the kernel sums the moments in another order than the plain version's
 matrix product, so an angle can move in its last bits and, rarely, a
@@ -15,9 +15,13 @@ rotation bin flip).
 import numpy as np
 import pytest
 import torch
+from _torch_parity import slam_config
 
+from orbslam2_tpu_torch import config as torch_config
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
+from orbslam2_tpu_torch.kernels import cases
 from orbslam2_tpu_torch.ops import fast, hamming, orb, patches
+from orbslam2_tpu_torch.slam.system import System
 
 pytestmark = pytest.mark.cuda
 
@@ -137,15 +141,66 @@ def test_hamming_best2_exact(cuda, shape, ties):
         assert torch.equal(g, w)
 
 
+@pytest.fixture(scope="module")
+def k3_cases(cuda):
+    return cases.k3_cases(cuda)
+
+
+@pytest.mark.parametrize("mode", ["stereo", "frame", "points", "mask"])
+def test_hamming_best2_modes_on_edge_cases(k3_cases, mode):
+    """Each K3 mode equals its plain version (gate + best2_plain) on the
+    boundary, complement, empty, non-finite and tie-heavy cases."""
+    n = 0
+    for name, A, B, gate in k3_cases:
+        if name.split()[0].split("/")[0] != mode:
+            continue
+        got, want = cases.k3(A, B, gate), cases.k3_plain(A, B, gate)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+        n += 1
+    assert n >= 2
+
+
+def test_fused_frames_build_no_dense_gate(cuda, monkeypatch):
+    """On the card the fused frame's three matchers go through the gated K3
+    modes: with every plain [N, M] gate and distance builder patched to
+    raise, fused frames still track, with one stereo and one points launch
+    each and no mask launch."""
+    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
+    _, frames = world.render_sequence(6, step=0.06)
+    system = System(None, slam_config(world, torch_config), device=cuda)
+    for i in range(3):
+        system.track_stereo(*frames[i], timestamp=i / 20.0)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a dense [N, M] gate or distance matrix was built on the CUDA path")
+
+    for name in ("gate_mask", "best2_plain", "best2_gated_plain", "masked_hamming", "hamming_matrix"):
+        monkeypatch.setattr(hamming, name, refuse)
+    mask0, gated0 = hamming.best2.launches, dict(hamming.best2_gated.launches)
+    for i in range(3, 6):
+        assert system.tracker._can_fuse()
+        assert system.track_stereo(*frames[i], timestamp=i / 20.0) is not None
+    gated = {k: v - gated0[k] for k, v in hamming.best2_gated.launches.items()}
+    assert hamming.best2.launches == mask0
+    assert gated["stereo"] == 3 and gated["points"] == 3 and gated["frame"] >= 3
+
+
 def test_wrappers_count_launches(levels):
     img, xs, ys = levels[3]
     before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
+    gated0 = dict(hamming.best2_gated.launches)
     fast.fast_nms(img)
     patches.orb_patch_desc(img, xs, ys)
     d = torch.zeros((4, 8), dtype=torch.int32, device=img.device)
     hamming.best2(d, d, torch.ones((4, 4), dtype=torch.bool, device=img.device))
     after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    for name, A, B, gate in cases.k3_cases(img.device)[:1]:
+        cases.k3(A, B, gate)
+        assert hamming.best2_gated.launches[gate.mode] == gated0[gate.mode] + 1
+    hamming.best2(d[:0], d, torch.ones((0, 4), dtype=torch.bool, device=img.device))  # no rows: no launch
+    assert hamming.best2.launches == after[2]
 
 
 def test_all_level_calls_count_one_launch(levels):
