@@ -20,22 +20,32 @@ PyTorch built for CUDA. It
      kernel's bound (bytes or operations at the published peaks) from the
      inputs;
   4. drives the main path, `System(..., device="cuda").track_stereo`, over
-     the 40-frame synthetic sequence of tests/test_tracking.py, recording
-     the arguments of every K3 call of frame 1 (mask mode) and of a
-     steady fused frame (stereo, frame and points modes); checks that
-     every kernel and K3 mode was launched there (K1, K2 and K3's stereo
-     mode exactly once per frame; on every fused frame one points launch
-     and no mask launch), that >= 39 frames tracked with ATE RMSE < 0.06
-     m, and that the first frames agree with the port's plain CPU path;
+     the 40-frame synthetic sequence of tests/test_tracking.py, with the
+     local mapper inline on every keyframe, recording the arguments of
+     every K3 call of frame 1 (mask mode, search_by_bow), of a steady
+     fused frame (stereo, frame and points modes) and of the first
+     keyframe's mapping pass that launched both mapper modes (mask mode
+     for epipolar_match, one call per neighbour; fuse mode, one call per
+     fusion target and one backward); checks that every kernel and K3
+     mode was launched there (K1, K2 and K3's stereo mode exactly once
+     per frame; on every fused frame one points launch and no
+     search_by_bow mask launch: the mapper's epipolar mask launches are
+     counted apart), that the mapper processed >= 2 keyframes, created
+     points by triangulation and ran >= 1 local BA on CUDA tensors, that
+     >= 39 frames tracked with ATE RMSE < 0.06 m, and that the first
+     frames agree with the port's plain CPU path (mapping included);
      holds each K3 mode exactly against its plain version on the recorded
      arguments and times it there; times each kernel alone by its
      `torch.profiler` durations (after the slice, so that no profiler
-     session precedes the slice's frames); profiles 5 more frames (per
-     traced stage: host and device ms and device kernels per frame);
-     prints each kernel's launches per frame, times, bound and roofline
-     share;
-  5. prints one JSON line describing the kernels (one row per K3 mode),
-     then the result line.
+     session precedes the slice's frames); profiles 10 more frames (per
+     traced stage: host and device ms and device kernels, per frame for
+     the tracker's stages and per call for the mapper's); prints each
+     kernel's launches per frame, times, bound and roofline share;
+  5. runs `System(None, cfg, threaded=True)` over the 40 frames: the
+     mapper on its worker thread, >= 39 frames tracked, ATE RMSE < 0.06
+     m, `wait_idle` without a worker error;
+  6. prints one JSON line describing the kernels (one row per K3 mode and
+     caller), then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
 CUDA card is visible, or when the port cannot be imported.
@@ -44,6 +54,7 @@ CUDA card is visible, or when the port cannot be imported.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import json
 import statistics
@@ -59,12 +70,14 @@ from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.evaluation.ate import ate_rmse
 from orbslam2_tpu_torch.kernels import build, cases
-from orbslam2_tpu_torch.ops import fast, hamming, orb, patches
+from orbslam2_tpu_torch.ops import ba, fast, hamming, orb, patches
+from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
 from orbslam2_tpu_torch.slam.system import System
 
 N_FRAMES = 40
-N_CPU_FRAMES = 12
-N_PROFILE_FRAMES = 5
+# the first two mapped keyframes and a local BA fall in the first 20 frames
+N_CPU_FRAMES = 20
+N_PROFILE_FRAMES = 10
 # frames whose K3 calls are recorded: frame 1 takes the reference-keyframe
 # path (mask mode), REC_FRAME is a steady fused frame
 REC_FRAMES = (1, 20)
@@ -97,14 +110,24 @@ KERNELS = {
                                 replaces="orbslam2_tpu/ops/matchers.py:256"),
     "hamming_best2:points": dict(kernel="GatePoints", source=K3_SOURCE,
                                  replaces="orbslam2_tpu/ops/matchers.py:440"),
+    "hamming_best2:fuse": dict(kernel="GateFuse", source=K3_SOURCE, replaces="orbslam2_tpu/ops/matchers.py:384"),
+    "hamming_best2:mask:epipolar": dict(kernel="GateMask", source=K3_SOURCE,
+                                        replaces="orbslam2_tpu/ops/matchers.py:343"),
 }
-K3_MODES = ("mask", "stereo", "frame", "points")
+# K3's rows: the tracker's modes, then the mapper's (mask mode under its
+# caller epipolar_match)
+K3_ROWS = ("mask", "stereo", "frame", "points", "fuse", "mask:epipolar")
+MAPPER_ROWS = ("fuse", "mask:epipolar")
+# the mapper's stages (its shutdown-report spans), reported per call
+MAPPING_STAGES = ("Keyframe insertion", "Map point culling", "Map point creation", "Map point fusion",
+                  "Local BA", "Keyframe culling")
 
 
 def launch_counts() -> dict:
     """Every kernel's launch counter, by KERNELS name."""
     c = {"fast_nms": fast.fast_nms_levels.launches, "orb_patch_desc": patches.orb_patch_desc_levels.launches,
-         "hamming_best2:mask": hamming.best2.launches}
+         "hamming_best2:mask": hamming.best2.launches["search_by_bow"],
+         "hamming_best2:mask:epipolar": hamming.best2.launches["epipolar_match"]}
     c.update({f"hamming_best2:{m}": n for m, n in hamming.best2_gated.launches.items()})
     return c
 
@@ -112,9 +135,9 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     fast.fast_nms_levels.launches = 0
     patches.orb_patch_desc_levels.launches = 0
-    hamming.best2.launches = 0
-    for m in hamming.best2_gated.launches:
-        hamming.best2_gated.launches[m] = 0
+    for counts in (hamming.best2.launches, hamming.best2_gated.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def check(cond, msg):
@@ -290,7 +313,7 @@ def k3_bound(A, B, gate):
     N, M = A.shape[0], B.shape[0]
     if isinstance(gate, hamming.Gate):
         vec = [gate.row_uv, gate.row_r, gate.row_oct, gate.row_valid, gate.col_uv, gate.col_oct,
-               gate.col_valid, gate.row_umin, gate.row_ur, gate.col_ur]
+               gate.col_valid, gate.row_umin, gate.row_ur, gate.col_ur, gate.col_isig]
         nbytes = sum(t.numel() * t.element_size() for t in vec if t is not None)
         pairs = int(hamming.gate_mask(gate).sum())
     else:
@@ -299,62 +322,91 @@ def k3_bound(A, B, gate):
 
 
 def check_k3_main_path(calls):
-    """Each K3 mode exactly against its plain version on the arguments the
-    main path gave it (recorded during the slice); times each mode there.
-    Returns {KERNELS name: (max_abs_err, times, bound, timed call)}."""
+    """Each K3 row exactly against its plain version on the arguments the
+    main path gave it (recorded during the slice); times each row there,
+    on its first recorded call. Returns {KERNELS name: (max_abs_err,
+    times, bound, timed call)}."""
     out = {}
     for frame in sorted(calls, key=lambda f: f != REC_FRAME):  # time the steady frame's calls
-        for mode, A, B, gate in calls[frame]:
+        for row, A, B, gate in calls[frame]:
             got, want = cases.k3(A, B, gate), cases.k3_plain(A, B, gate)
             torch.cuda.synchronize()
             for g, w, label in zip(got, want, ("idx1", "d1", "idx2", "d2")):
-                check(torch.equal(g, w), f"hamming_best2 ({mode}) {label} differs from plain on frame {frame}")
-            name = f"hamming_best2:{mode}"
-            if name in out:  # a retry of the frame matcher: checked, timed once
+                check(torch.equal(g, w), f"hamming_best2 ({row}) {label} differs from plain on frame {frame}")
+            name = f"hamming_best2:{row}"
+            if name in out:  # a retry, another neighbour or target: checked, timed once
                 continue
             (b_ms, b_by), pairs = k3_bound(A, B, gate)
             call = functools.partial(cases.k3, A, B, gate)
             timing = dict(ms=cuda_ms(call), plain_ms=cuda_ms(functools.partial(cases.k3_plain, A, B, gate)))
-            print(f"K3 {mode}: exact on frame {frame}'s main-path arguments, {A.shape[0]}x{B.shape[0]}, "
-                  f"{pairs} gated pairs")
+            n_calls = sum(r == row for r, *_ in calls[frame])
+            print(f"K3 {row}: exact on frame {frame}'s {n_calls} main-path call(s), timed on the first: "
+                  f"{A.shape[0]}x{B.shape[0]}, {pairs} gated pairs")
             out[name] = (0.0, timing, (b_ms, b_by), call)
-    for mode in K3_MODES:
-        check(f"hamming_best2:{mode}" in out, f"no K3 {mode} call was recorded on frames {REC_FRAMES}")
+    for row in K3_ROWS:
+        check(f"hamming_best2:{row}" in out, f"no K3 {row} call was recorded")
     return out
 
 
 def run_slice(world, cfg, frames, device, record=()):
     """Track `frames`; returns (system, poses, ms per frame, launch counts
-    per frame, fused flag per frame, recorded K3 calls). The K3 calls of
-    the frames in `record` are recorded by wrapping `hamming._launch`, the
-    one launch path below the counted wrappers: {frame: [(mode, A, B,
-    gate)]}."""
+    per frame, fused flag per frame, recorded K3 calls, devices of the
+    local BA problems). The K3 calls of the frames in `record`, and those
+    of the mapper on the first frame whose mapping pass launched both
+    mapper rows, are recorded by wrapping `hamming._launch`, the one
+    launch path below the counted wrappers: {frame: [(row, A, B, gate)]}.
+    Nothing is recorded when `record` is empty."""
     system = System(None, cfg, device=device)
-    est, ms, per_frame, fused, calls = [], [], [], [], {}
-    launch = hamming._launch
+    est, ms, per_frame, fused, calls, ba_devices = [], [], [], [], {}, []
+    launch, best2, solve = hamming._launch, hamming.best2, ba.ba_solve_pm_interruptible
+    callers = []
+
+    def best2_tagged(A, B, mask, caller="search_by_bow"):
+        callers.append(caller)
+        try:
+            return best2(A, B, mask, caller)
+        finally:
+            callers.pop()
+
+    best2_tagged.launches = best2.launches
 
     def recording(mode, A, B, tensors, oct_mode="both"):
-        calls.setdefault(i, []).append((mode, *k3_record(mode, A, B, tensors, oct_mode)))
+        row = "mask:epipolar" if mode == "mask" and callers[-1] == "epipolar_match" else mode
+        if i in record or (row in MAPPER_ROWS and mapping_frame is None):
+            calls.setdefault(i, []).append((row, *k3_record(mode, A, B, tensors, oct_mode)))
         return launch(mode, A, B, tensors, oct_mode)
 
-    for i, (imL, imR) in enumerate(frames):
-        fused.append(system.tracker._can_fuse())
-        before = launch_counts()
-        if i in record:
-            hamming._launch = recording
-        try:
+    def solve_seen(prob, *a, **k):
+        ba_devices.append(prob.poses.device)
+        return solve(prob, *a, **k)
+
+    mapping_frame = None
+    ba.ba_solve_pm_interruptible = solve_seen
+    if record:
+        hamming._launch, hamming.best2 = recording, best2_tagged
+    try:
+        for i, (imL, imR) in enumerate(frames):
+            fused.append(system.tracker._can_fuse())
+            before = launch_counts()
             t0 = time.perf_counter()
             est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
             ms.append((time.perf_counter() - t0) * 1e3)
-        finally:
-            hamming._launch = launch
-        per_frame.append({k: v - before[k] for k, v in launch_counts().items()})
-    return system, est, ms, per_frame, fused, calls
+            per_frame.append({k: v - before[k] for k, v in launch_counts().items()})
+            rows = {r for r, *_ in calls.get(i, [])}
+            if mapping_frame is None and set(MAPPER_ROWS) <= rows:
+                mapping_frame = i
+            elif i not in record:
+                calls.pop(i, None)
+    finally:
+        hamming._launch, hamming.best2, ba.ba_solve_pm_interruptible = launch, best2, solve
+    return system, est, ms, per_frame, fused, calls, ba_devices
 
 
 def profile_frames(system, frames, first):
-    """Track more frames under torch.profiler: stage host/device times per
-    frame, the device's busy share of the wall time, the top kernels."""
+    """Track more frames under torch.profiler: host/device times of the
+    tracker's stages per frame and of the mapper's stages per call (one
+    call per keyframe), the device's busy share of the wall time, the top
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -371,8 +423,17 @@ def profile_frames(system, frames, first):
                 return fn(*a, **k)
         return run
 
+    span = LocalMapper._span
+
+    def traced_span(self, name):
+        stack = contextlib.ExitStack()
+        stack.enter_context(span(self, name))
+        stack.enter_context(record_function(f"stage:{name}"))
+        return stack
+
     for (owner, name), fn in zip(stages, originals):
         setattr(owner, name, traced(fn, f"stage:{name}"))
+    LocalMapper._span = traced_span
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -383,6 +444,7 @@ def profile_frames(system, frames, first):
     finally:
         for (owner, name), fn in zip(stages, originals):
             setattr(owner, name, fn)
+        LocalMapper._span = span
     n = len(frames)
     # device-side events, without the ranges' own GPU annotations
     kernels = [e for e in prof.events()
@@ -398,9 +460,11 @@ def profile_frames(system, frames, first):
     for name, st in per_stage.items():
         ks = st["kernels"]
         ours = sum(any(k["kernel"] in e.name for k in KERNELS.values()) for e in ks)
-        print(f"  {name}: {st['calls'] / n:.1f} calls/frame, host {st['host_us'] / n / 1e3:.2f} ms/frame, "
-              f"device {sum(e.time_range.elapsed_us() for e in ks) / n / 1e3:.3f} ms/frame, "
-              f"{len(ks) / n:.1f} device kernels/frame ({ours / n:.1f} of the port's kernels)")
+        per, unit = (st["calls"], "call") if name in MAPPING_STAGES else (n, "frame")
+        print(f"  {name}: {st['calls'] / n:.1f} calls/frame, host {st['host_us'] / per / 1e3:.2f} ms/{unit}, "
+              f"device {sum(e.time_range.elapsed_us() for e in ks) / per / 1e3:.3f} ms/{unit}, "
+              f"{len(ks) / per:.1f} device kernels/{unit} ({ours / per:.1f} of the port's kernels)")
+    check(any(name in per_stage for name in MAPPING_STAGES), "the profile phase traced no mapping stage")
     by_name = {}
     for e in kernels:
         t, c = by_name.get(e.name, (0.0, 0))
@@ -439,6 +503,33 @@ def center(T):
     return -T[:3, :3].T.astype(np.float64) @ T[:3, 3]
 
 
+def run_threaded(cfg, frames, poses_gt) -> dict:
+    """`System(None, cfg, threaded=True)` on the card over `frames`: the
+    mapper on its worker thread; >= all but one frame tracked, ATE RMSE <
+    0.06 m, `wait_idle` without a worker error."""
+    system = System(None, cfg, threaded=True)
+    est, ms = [], []
+    for i, (imL, imR) in enumerate(frames):
+        t0 = time.perf_counter()
+        est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    system.wait_idle()
+    lm = system.local_mapper
+    system.shutdown()
+    n_tracked = sum(T is not None for T in est)
+    pairs = [(g, e) for g, e in zip(poses_gt, est) if e is not None]
+    rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
+    out = dict(tracked=n_tracked, ate_rmse_m=rmse, ms_per_frame_p50=statistics.median(ms[2:]),
+               ms_per_frame_max=max(ms[2:]), keyframes_mapped=lm.n_processed, local_ba=lm.n_local_ba)
+    print(f"threaded: {n_tracked}/{len(frames)} frames tracked, ATE RMSE {rmse:.4f} m, ms/frame p50 "
+          f"{out['ms_per_frame_p50']:.2f} max {out['ms_per_frame_max']:.2f}, {lm.n_processed} keyframes mapped, "
+          f"{lm.n_local_ba} local BAs on the worker thread")
+    check(n_tracked >= len(frames) - 1, f"threaded: only {n_tracked}/{len(frames)} frames tracked")
+    check(rmse < 0.06, f"threaded: ATE RMSE {rmse} >= 0.06 m")
+    check(lm.n_processed >= 2, f"threaded: the worker processed {lm.n_processed} keyframes")
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -467,9 +558,18 @@ def main():
     check_k3_edge_cases()
 
     reset_launch_counts()
-    system, est, ms, per_frame, fused, calls = run_slice(world, cfg, frames, "cuda", record=REC_FRAMES)
+    system, est, ms, per_frame, fused, calls, ba_devices = run_slice(world, cfg, frames, "cuda",
+                                                                     record=REC_FRAMES)
     torch.cuda.synchronize()
     launches = launch_counts()
+    lm = system.local_mapper
+    mapping = dict(keyframes_mapped=lm.n_processed, local_ba=lm.n_local_ba, points_triangulated=lm.n_created)
+    print(f"local mapping: {lm.n_processed} keyframes processed, {lm.n_created} points triangulated, "
+          f"{lm.n_local_ba} local BAs on {sorted({str(d) for d in ba_devices})}")
+    check(lm.n_processed >= 2, f"the mapper processed {lm.n_processed} keyframes")
+    check(lm.n_created > 0, "triangulation created no point")
+    check(lm.n_local_ba >= 1 and ba_devices and all(d.type == "cuda" for d in ba_devices),
+          f"local BA: {lm.n_local_ba} solves on {ba_devices}")
     n_tracked = sum(T is not None for T in est)
     pairs = [(g, e) for g, e in zip(poses_gt, est) if e is not None]
     rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
@@ -495,10 +595,13 @@ def main():
     for name in ("fast_nms", "orb_patch_desc", "hamming_best2:stereo"):
         check(launches[name] == N_FRAMES, f"{name}: {launches[name]} launches over {N_FRAMES} frames")
     for i, (f, c) in enumerate(zip(fused, per_frame)):
-        if f:  # a fused frame: one points launch, one or two (the retry) frame launches, no mask
+        # a fused frame: the tracker's one points launch, one or two (the
+        # retry) frame launches, no search_by_bow mask launch; the mapper's
+        # epipolar mask launches are counted apart
+        if f:
             check(c["hamming_best2:points"] == 1 and c["hamming_best2:mask"] == 0
                   and c["hamming_best2:frame"] in (1, 2), f"fused frame {i}: K3 launches {c}")
-    on_fused = {m: sum(c[f"hamming_best2:{m}"] for c, f in zip(per_frame, fused) if f) for m in K3_MODES}
+    on_fused = {r: sum(c[f"hamming_best2:{r}"] for c, f in zip(per_frame, fused) if f) for r in K3_ROWS}
     print(f"K3 launches on the {sum(fused)} fused frames: {on_fused}")
     rows = []
     for name, k in KERNELS.items():
@@ -514,20 +617,23 @@ def main():
             **t, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
-    # the plain CPU path on the first frames: same states, poses within 1 cm
+    # the plain CPU path on the first frames, mapping included: same
+    # states, poses within 1 cm
     est_cpu = run_slice(world, cfg, frames[:N_CPU_FRAMES], "cpu")[1]
     worst = 0.0
     for i, (a, b) in enumerate(zip(est[:N_CPU_FRAMES], est_cpu)):
         check((a is None) == (b is None), f"frame {i}: cuda/cpu tracking state differs")
         if a is not None:
             worst = max(worst, float(np.linalg.norm(center(a) - center(b))))
-    print(f"cuda vs cpu plain path, first {N_CPU_FRAMES} frames: max camera-centre gap {worst:.2e} m")
+    print(f"cuda vs cpu plain path, first {N_CPU_FRAMES} frames (mapping included): max camera-centre gap "
+          f"{worst:.2e} m")
     check(worst < 0.01, f"cuda and cpu poses differ by {worst} m")
+    threaded = run_threaded(cfg, frames, poses_gt)
 
     print(json.dumps({"slice": {
         "frames": N_FRAMES, "tracked": n_tracked, "ate_rmse_m": rmse,
         "ms_per_frame_p50": statistics.median(steady), "ms_per_frame_max": max(steady),
-        "card": smi,
+        **mapping, "threaded": threaded, "card": smi,
     }}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

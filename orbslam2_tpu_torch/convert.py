@@ -7,9 +7,10 @@ Two kinds of things cross the boundary:
     `_BLUR_BAND`, `_BIN_FLAT`, `CIRCLE`). They are built here with the same
     numpy code from the same pattern file, so the port needs no JAX to
     have them; the tests hold them equal to the JAX package's;
-  * arrays: a JAX `FrameFeatures` and the argument tuple of the JAX
-    tracker's `_full_step` become the port's tensors. Anything with
-    `__array__` converts, so this module never imports JAX.
+  * arrays: a JAX `FrameFeatures`, the argument tuple of the JAX
+    tracker's `_full_step` and a point-major BA problem become the port's
+    tensors. Anything with `__array__` converts, so this module never
+    imports JAX.
 
 Descriptors: the JAX package keeps 256-bit descriptors as uint32 [N, 8];
 the port keeps the same bits as int32 [N, 8] (`.view(np.int32)`), because
@@ -179,3 +180,14 @@ def full_step_args_to_torch(args, device) -> tuple:
         else:
             out.append(to_torch(a, device))
     return tuple(out)
+
+
+def ba_problem_pm_to_torch(prob, device):
+    """A `BAProblemPM` of numpy or JAX arrays (the JAX package's, or the
+    port's assembly) -> the port's `ops.ba.BAProblemPM` on `device`, with
+    int64 camera rows."""
+    from .ops import ba
+
+    t = {name: to_torch(getattr(prob, name), device) for name in ba.BAProblemPM._fields}
+    t["obs_kf"] = t["obs_kf"].long()
+    return ba.BAProblemPM(**t)

@@ -6,19 +6,26 @@
 // second-index pass of orbslam2_tpu/ops/matchers.py::
 // search_by_projection_points (:464-466), and the [N, M] gates of
 // stereo_match (:191-201), search_by_projection_frame (:256-275) and
-// search_by_projection_points (:440-456). Neither the distances nor the
-// gate are ever written.
+// search_by_projection_points (:440-456) and fuse_match (:384-401).
+// Neither the distances nor the gate are ever written.
 //
-// One kernel template over a gate functor, four modes:
-//   GateMask    a bool [N, M] mask (search_by_bow): every column is scanned;
+// One kernel template over a gate functor, five modes:
+//   GateMask    a bool [N, M] mask (search_by_bow, epipolar_match): every
+//               column is scanned;
 //   GateStereo  row band |vR - vL| <= 2 sigma, octave +-1, uL - max_d <= uR <= uL;
 //   GateFrame   window |du|, |dv| <= th sigma, forward / backward / +-1 octave;
 //   GatePoints  window, octave in [pred - 1, pred], stereo agreement
-//               |ur_cur - ur_pt| <= radius where the keypoint has a right u.
+//               |ur_cur - ur_pt| <= radius where the keypoint has a right u;
+//   GateFuse    window, octave in [pred - 1, pred], reprojection chi2
+//               ((du du + dv dv) + er er) isig <= 7.8 where the keypoint has a
+//               right u, else (du du + dv dv) isig <= 5.99.
 // The matchers (ops/matchers.py) compute the per-row vectors with the
 // plain expressions; each pairwise test here is one subtraction,
 // one fabsf and one compare, candidate minus row as in the plain gate, or
 // an integer compare, so no contraction or reordering can move a gate.
+// The fuse chi2 multiplies and adds: it is written with __fmul_rn and
+// __fadd_rn in the plain version's order (hamming.py::_gate_fuse), which
+// nvcc never contracts into an FMA, so it rounds as the plain version does.
 //
 // Pruning: in the gated modes every block first sorts the columns by v
 // into shared memory, as a counting sort into NB buckets spread over the
@@ -65,7 +72,7 @@ constexpr int NB = THREADS;          // v buckets of the gated modes' counting s
 constexpr int MAX_COLUMNS = 16384;   // sorted in shared memory: 4 bytes per column
 constexpr unsigned kAll = 0xffffffffu;
 
-enum Mode { MODE_MASK = 0, MODE_STEREO = 1, MODE_FRAME = 2, MODE_POINTS = 3 };
+enum Mode { MODE_MASK = 0, MODE_STEREO = 1, MODE_FRAME = 2, MODE_POINTS = 3, MODE_FUSE = 4 };
 enum OctMode { OCT_FORWARD = 0, OCT_BACKWARD = 1, OCT_BOTH = 2 };
 
 // Mirrors ops/hamming.py::_Args. Row and column coordinates are [n, 2]
@@ -78,20 +85,21 @@ struct Best2Args {
     const float* row_uv;          // [n, 2]
     const float* row_r;           // [n] band (stereo) or window (frame, points) half-size
     const float* row_umin;        // [n] stereo: uL - max_d
-    const float* row_ur;          // [n] points: predicted right u
+    const float* row_ur;          // [n] points, fuse: predicted right u
     const int* row_oct;           // [n]
     const unsigned char* row_valid;
     const float* col_uv;          // [m, 2]
-    const float* col_ur;          // [m] points: right u, < 0 where none
+    const float* col_ur;          // [m] points, fuse: right u, < 0 where none
     const int* col_oct;           // [m]
     const unsigned char* col_valid;
+    const float* col_isig;        // [m] fuse: 1 / sigma^2 of the column's octave
     int* out;                     // [4, n]: idx1, d1, idx2, d2
     int n, m, mode, oct_mode;
     int n_blocks;                 // written back by the launcher
 };
 
 struct RowAt {
-    float u, v, r, aux;  // aux: umin (stereo) or ur (points)
+    float u, v, r, aux;  // aux: umin (stereo) or ur (points, fuse)
     int oct;
 };
 
@@ -156,6 +164,28 @@ struct GatePoints {
         if (oc < r.oct - 1 || oc > r.oct) return false;
         const float cur = p.col_ur[j];
         return !(cur >= 0.0f) || fabsf(cur - r.aux) <= r.r;
+    }
+};
+
+struct GateFuse {
+    static constexpr bool kSearch = true;
+    __device__ static bool row(const Best2Args& p, int i, RowAt& r) {
+        if (!load_row(p, i, r)) return false;
+        r.aux = p.row_ur[i];
+        return true;
+    }
+    __device__ static bool pass(const Best2Args& p, int, const RowAt& r, int j) {
+        if (!p.col_valid[j] || !window(p, r, j)) return false;
+        const int oc = p.col_oct[j];
+        if (oc < r.oct - 1 || oc > r.oct) return false;
+        const float du = p.col_uv[2 * j] - r.u, dv = p.col_uv[2 * j + 1] - r.v;
+        const float e2 = __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
+        const float isig = p.col_isig[j], cur = p.col_ur[j];
+        if (cur >= 0.0f) {
+            const float er = r.aux - cur;
+            return __fmul_rn(__fadd_rn(e2, __fmul_rn(er, er)), isig) <= 7.8f;
+        }
+        return __fmul_rn(e2, isig) <= 5.99f;
     }
 };
 
@@ -353,7 +383,7 @@ cudaError_t launch(const Best2Args& p, int blocks, cudaStream_t s) {
 extern "C" int hamming_best2_launch(void* args, void* stream) {
     Best2Args& p = *static_cast<Best2Args*>(args);
     p.n_blocks = 0;
-    if (p.n < 0 || p.m < 0 || p.mode < MODE_MASK || p.mode > MODE_POINTS ||
+    if (p.n < 0 || p.m < 0 || p.mode < MODE_MASK || p.mode > MODE_FUSE ||
         (p.mode != MODE_MASK && p.m > MAX_COLUMNS))
         return (int)cudaErrorInvalidValue;
     if (p.n == 0) return 0;
@@ -365,7 +395,8 @@ extern "C" int hamming_best2_launch(void* args, void* stream) {
         case MODE_MASK: e = launch<GateMask>(p, blocks, s); break;
         case MODE_STEREO: e = launch<GateStereo>(p, blocks, s); break;
         case MODE_FRAME: e = launch<GateFrame>(p, blocks, s); break;
-        default: e = launch<GatePoints>(p, blocks, s); break;
+        case MODE_POINTS: e = launch<GatePoints>(p, blocks, s); break;
+        default: e = launch<GateFuse>(p, blocks, s); break;
     }
     if (e == cudaSuccess) p.n_blocks = blocks;
     return (int)e;

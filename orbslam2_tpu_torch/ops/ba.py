@@ -1,0 +1,298 @@
+"""Point-major bundle adjustment: Levenberg-Marquardt with block-Jacobi PCG.
+
+Port of the point-major solver of orbslam2_tpu/ops/ba.py (:300-756; the
+COO solver is not ported: the system runs point-major only). Used for the
+local bundle adjustment (reference Optimizer::LocalBundleAdjustment,
+src/Optimizer.cpp:426-787) with the reference's two-stage schedule: 5 LM
+iterations, the chi2 outlier cut (5.991 mono / 7.815 stereo), 10 more.
+
+Layout: each of P point rows carries up to D observations [P, D]; padded
+slots have `edge_valid` False and weigh nothing. Point-side sums run over
+the D axis; camera-side sums are fp32 `index_add_` over the camera index
+of each edge, and the camera gather of the H*v product is plain indexing.
+(The JAX package does both as bf16 one-hot matmuls with f32 accumulation,
+`_pm_onehot`/`_pm_mm`/`_pm_camera_gather`, because the TPU serializes
+gathers and scatters; the port keeps the camera-side operand in fp32, so
+its BA agrees with the JAX package's within a tolerance, not bit for bit.)
+
+Every LM step stays on the tensors' device with no host sync: accept or
+reject is a `torch.where`. `ba_solve_pm_interruptible` syncs only where it
+reads `float(state.F)` between chunks of iterations.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from ..geometry import se3
+from ..geometry.camera import Camera
+
+CHI2_MONO = 5.991
+CHI2_STEREO = 7.815
+DELTA_MONO = 2.447864292
+DELTA_STEREO = 2.795531836
+
+
+def inv3x3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / det, det clamped to
+    1e-18 in magnitude)."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-18, 1e-18, det)
+    adj = torch.stack(
+        [
+            torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
+            torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
+            torch.stack([C, -(a * h - b * g), a * e - b * d], -1),
+        ],
+        dim=-2,
+    )
+    return adj * inv_det[..., None, None]
+
+
+class BAProblemPM(NamedTuple):
+    poses: torch.Tensor  # [K,4,4] float32 Tcw
+    points: torch.Tensor  # [P,3] float32
+    obs_kf: torch.Tensor  # [P,D] int64 camera row per slot
+    obs: torch.Tensor  # [P,D,3] (u, v, uR)
+    inv_sigma2: torch.Tensor  # [P,D]
+    is_stereo: torch.Tensor  # [P,D] bool
+    edge_valid: torch.Tensor  # [P,D] bool
+    pose_fixed: torch.Tensor  # [K] bool
+
+
+class PMLMState(NamedTuple):
+    """LM state carried between iterations (0-dim tensors for lam, ni, F),
+    so the host can run the solve in interruptible chunks."""
+
+    poses: torch.Tensor
+    points: torch.Tensor
+    lam: torch.Tensor
+    ni: torch.Tensor
+    F: torch.Tensor
+
+
+class BAResultPM(NamedTuple):
+    poses: torch.Tensor
+    points: torch.Tensor
+    edge_inlier: torch.Tensor  # [P,D] bool
+    final_chi2: torch.Tensor
+
+
+def _pm_edge_terms(poses, points, prob: BAProblemPM, cam: Camera):
+    """Residuals r [P,D,3], Jacobians Jc [P,D,3,6] (pose, left update) and
+    Jp [P,D,3,3] (point), the residual components that count comp [P,D,3]
+    (uR only for stereo edges) and z > 0 [P,D]."""
+    T = poses[prob.obs_kf]  # [P,D,4,4]
+    R = T[..., :3, :3]
+    pc = torch.einsum("pdij,pj->pdi", R, points) + T[..., :3, 3]
+    x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
+    zs = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
+    inv_z = 1.0 / zs
+    inv_z2 = inv_z * inv_z
+    u = cam.fx * x * inv_z + cam.cx
+    v = cam.fy * y * inv_z + cam.cy
+    ur = u - cam.bf * inv_z
+    r = prob.obs - torch.stack([u, v, ur], dim=-1)
+    zero = torch.zeros_like(x)
+    dh = torch.stack(
+        [
+            torch.stack([cam.fx * inv_z, zero, -cam.fx * x * inv_z2], -1),
+            torch.stack([zero, cam.fy * inv_z, -cam.fy * y * inv_z2], -1),
+            torch.stack([cam.fx * inv_z, zero, (-cam.fx * x + cam.bf) * inv_z2], -1),
+        ],
+        dim=-2,
+    )
+    hat_pc = se3.hat(pc)
+    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(hat_pc.shape)
+    dpc = torch.cat([-hat_pc, eye], dim=-1)
+    Jc = -(dh @ dpc)
+    Jp = -(dh @ R)
+    comp = torch.stack([torch.ones_like(x), torch.ones_like(x), prob.is_stereo.to(x.dtype)], -1)
+    return r, Jc, Jp, comp, z > 0.0
+
+
+def _pm_weights(r, comp, prob: BAProblemPM, depth_ok, use_huber: bool):
+    """Per-edge IRLS weight w (Huber with the reference's deltas), chi2 e2
+    and robust cost rho (0 for inactive edges)."""
+    e2 = torch.sum(r * r * comp, dim=-1) * prob.inv_sigma2
+    delta = torch.where(prob.is_stereo, DELTA_STEREO, DELTA_MONO)
+    delta2 = delta * delta
+    root = torch.sqrt(torch.clamp(e2, min=1e-12))
+    huber = (e2 > delta2) if use_huber else torch.zeros_like(e2, dtype=torch.bool)
+    w_h = torch.where(huber, delta / root, 1.0)
+    active = prob.edge_valid & depth_ok
+    w = torch.where(active, w_h * prob.inv_sigma2, 0.0)
+    rho = torch.where(huber, 2.0 * delta * root - delta2, e2)
+    return w, e2, torch.where(active, rho, 0.0)
+
+
+def _camera_sum(idx: torch.Tensor, x: torch.Tensor, K: int) -> torch.Tensor:
+    """[P,D,c] per-edge values summed per camera -> [K, c] (fp32)."""
+    flat = x.reshape(-1, x.shape[-1])
+    return torch.zeros((K, flat.shape[1]), dtype=flat.dtype, device=flat.device).index_add_(0, idx, flat)
+
+
+def _pm_assemble(poses, points, prob: BAProblemPM, cam: Camera, use_huber: bool):
+    """Gradients, diagonal blocks and robust cost (+ edge terms for reuse)."""
+    K = prob.poses.shape[0]
+    idx = prob.obs_kf.reshape(-1)
+    r, Jc, Jp, comp, dok = _pm_edge_terms(poses, points, prob, cam)
+    w, _, rho = _pm_weights(r, comp, prob, dok, use_huber)
+    W = w[..., None] * comp  # [P,D,3]
+    Wr = W * r
+    gc = _camera_sum(idx, torch.einsum("pdci,pdc->pdi", Jc, Wr), K)
+    gp = torch.einsum("pdci,pdc->pi", Jp, Wr)
+    Hcc = _camera_sum(idx, torch.einsum("pdci,pdc,pdcj->pdij", Jc, W, Jc).flatten(-2), K).reshape(K, 6, 6)
+    Hpp = torch.einsum("pdci,pdc,pdcj->pij", Jp, W, Jp)
+    return (r, Jc, Jp, W), gc, gp, Hcc, Hpp, torch.sum(rho)
+
+
+def ba_pm_init(prob: BAProblemPM, cam: Camera, use_huber: bool = True) -> PMLMState:
+    """Initial LM state: lambda = 1e-5 x the largest Hessian diagonal entry
+    (g2o's heuristic)."""
+    _, _, _, Hcc0, Hpp0, F0 = _pm_assemble(prob.poses, prob.points, prob, cam, use_huber)
+    diag_max = torch.maximum(torch.diagonal(Hcc0, dim1=-2, dim2=-1).max(),
+                             torch.diagonal(Hpp0, dim1=-2, dim2=-1).max())
+    return PMLMState(poses=prob.poses, points=prob.points, lam=1e-5 * diag_max,
+                     ni=torch.full_like(F0, 2.0), F=F0)
+
+
+def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
+               use_huber: bool = True) -> PMLMState:
+    """One point-major LM iteration: PCG inner solve of the damped normal
+    equations, then accept or reject on the device."""
+    K = prob.poses.shape[0]
+    idx = prob.obs_kf.reshape(-1)
+    free = (~prob.pose_fixed).to(prob.poses.dtype)[:, None]
+    poses, points, lam, ni, F = state
+    (r, Jc, Jp, W), gc, gp, Hcc, Hpp, _ = _pm_assemble(poses, points, prob, cam, use_huber)
+    gc = gc * free
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    Mc = torch.linalg.inv_ex(Hcc + (lam + 1e-6) * eye6).inverse
+    Mp = inv3x3(Hpp + (lam + 1e-6) * eye3)
+
+    def hv(vc, vp):
+        vc = vc * free
+        a = torch.einsum("pdci,pdi->pdc", Jc, vc[prob.obs_kf]) + torch.einsum("pdci,pi->pdc", Jp, vp)
+        Wa = W * a
+        Hc = _camera_sum(idx, torch.einsum("pdci,pdc->pdi", Jc, Wa), K)
+        Hp = torch.einsum("pdci,pdc->pi", Jp, Wa)
+        return (Hc + lam * vc) * free, Hp + lam * vp
+
+    def precond(rc, rp):
+        return (Mc @ rc[..., None])[..., 0] * free, (Mp @ rp[..., None])[..., 0]
+
+    def dot(ac, bc, ap, bp):
+        return torch.sum(ac * bc) + torch.sum(ap * bp)
+
+    def safe(x):
+        return torch.where(torch.abs(x) < 1e-20, 1e-20, x)
+
+    xc, xp = torch.zeros_like(gc), torch.zeros_like(gp)
+    rc, rp = gc, gp
+    zc, zp = precond(rc, rp)
+    pc_, pp_ = zc, zp
+    rz = dot(rc, zc, rp, zp)
+    for _ in range(n_cg):
+        Apc, App = hv(pc_, pp_)
+        alpha = rz / safe(dot(pc_, Apc, pp_, App))
+        xc = xc + alpha * pc_
+        xp = xp + alpha * pp_
+        rc = rc - alpha * Apc
+        rp = rp - alpha * App
+        zc, zp = precond(rc, rp)
+        rz2 = dot(rc, zc, rp, zp)
+        beta = rz2 / safe(rz)
+        pc_, pp_, rz = zc + beta * pc_, zp + beta * pp_, rz2
+    dxc = -xc * free
+    dxp = -xp
+    poses_new = se3.retract(poses, dxc)
+    points_new = points + dxp
+    F_new = _pm_assemble(poses_new, points_new, prob, cam, use_huber)[-1]
+    gdot = torch.sum(dxc * (lam * dxc - gc)) + torch.sum(dxp * (lam * dxp - gp))
+    rho = (F - F_new) / (gdot + 1e-12)
+    ok = (rho > 0) & torch.isfinite(F_new)
+    return PMLMState(
+        poses=torch.where(ok, poses_new, poses),
+        points=torch.where(ok, points_new, points),
+        lam=torch.where(ok, lam * torch.clamp(1 - (2 * rho - 1) ** 3, min=1 / 3), lam * ni),
+        ni=torch.where(ok, 2.0, ni * 2.0),
+        F=torch.where(ok, F_new, F),
+    )
+
+
+def pm_edge_chi2(poses, points, prob: BAProblemPM, cam: Camera):
+    r, _, _, comp, dok = _pm_edge_terms(poses, points, prob, cam)
+    return torch.sum(r * r * comp, dim=-1) * prob.inv_sigma2, dok
+
+
+def pm_inlier_mask(poses, points, prob: BAProblemPM, cam: Camera) -> torch.Tensor:
+    """Edges passing the chi2 gate (5.991 mono / 7.815 stereo) at the
+    given estimate: the mid-schedule outlier cut and the final inliers."""
+    e2, dok = pm_edge_chi2(poses, points, prob, cam)
+    th = torch.where(prob.is_stereo, CHI2_STEREO, CHI2_MONO)
+    return prob.edge_valid & (e2 <= th) & dok
+
+
+def ba_solve_pm(prob: BAProblemPM, cam: Camera, n_iters_first: int = 5, n_iters_second: int = 10,
+                n_cg: int = 20) -> BAResultPM:
+    """The two-stage schedule without a host sync."""
+    state = ba_pm_init(prob, cam)
+    for _ in range(n_iters_first):
+        state = ba_pm_step(prob, cam, state, n_cg)
+    prob2 = prob._replace(edge_valid=pm_inlier_mask(state.poses, state.points, prob, cam))
+    state = ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam)
+    for _ in range(n_iters_second):
+        state = ba_pm_step(prob2, cam, state, n_cg)
+    inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
+    return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)
+
+
+def ba_solve_pm_interruptible(
+    prob: BAProblemPM,
+    cam: Camera,
+    should_abort: Optional[Callable[[], bool]] = None,
+    n_iters_first: int = 5,
+    n_iters_second: int = 10,
+    n_cg: int = 20,
+    sync_every: int = 3,
+) -> BAResultPM:
+    """The two-stage schedule with abort checks between chunks of LM
+    iterations (reference mbAbortBA protocol, LocalMapping.cpp:109-114).
+
+    `should_abort()` is polled before each chunk of at most `sync_every`
+    iterations and before the second phase; once it returns True the
+    remaining iterations are skipped and the current estimate is finalized
+    (the chi2 inlier marking still runs). After each chunk the host reads
+    `float(state.F)`, the solve's only sync, which bounds the abort latency."""
+    if should_abort is None:
+        should_abort = lambda: False  # noqa: E731
+
+    def phase(prob_, state, n_iters):
+        done = 0
+        while done < n_iters:
+            if should_abort():
+                break
+            n = min(sync_every, n_iters - done)
+            for _ in range(n):
+                state = ba_pm_step(prob_, cam, state, n_cg)
+            float(state.F)
+            done += n
+        return state
+
+    state = phase(prob, ba_pm_init(prob, cam), n_iters_first)
+    prob2 = prob._replace(edge_valid=pm_inlier_mask(state.poses, state.points, prob, cam))
+    if not should_abort():
+        state = phase(prob2, ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam),
+                      n_iters_second)
+    inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
+    return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)

@@ -7,17 +7,22 @@ popcount, so the plain version counts bits with a SWAR sum on int64 (no
 arithmetic shift of a negative int32 is ever taken).
 
 K3 (`csrc/hamming_best2.cu`) is the matchers' masked best and second-best
-candidate per row, never materialising the [N, M] distances. It has four
-modes: `best2` takes a bool [N, M] mask (search_by_bow); `best2_gated`
-takes a `Gate`, the geometric gate of one of the three tracking matchers
-as per-row and per-column vectors, and on a CUDA tensor evaluates it in
-the kernel, so no [N, M] gate is built either. Its plain version builds
-the gate with `gate_mask` and takes `best2_plain`.
+candidate per row, never materialising the [N, M] distances. It has five
+modes: `best2` takes a bool [N, M] mask (search_by_bow, epipolar_match);
+`best2_gated` takes a `Gate`, the geometric gate of one of the three
+tracking matchers or of fuse_match as per-row and per-column vectors, and
+on a CUDA tensor evaluates it in the kernel, so no [N, M] gate is built
+either. Its plain version builds the gate with `gate_mask` and takes
+`best2_plain`.
+
+The launch counters are counted under a lock: the mapping worker thread
+launches K3 beside the tracker.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import NamedTuple, Optional
 
 import torch
@@ -108,7 +113,7 @@ class Gate(NamedTuple):
     compute `row_r` and `row_umin` with their plain expressions; the pair
     test is `gate_mask`'s, in the kernel as in the plain version."""
 
-    mode: str  # "stereo", "frame" or "points"
+    mode: str  # "stereo", "frame", "points" or "fuse"
     row_uv: torch.Tensor  # [N, 2] float32
     row_r: torch.Tensor  # [N] float32: band (stereo) or window (frame, points) half-size
     row_oct: torch.Tensor  # [N] int32: left octave, source octave, predicted level
@@ -117,9 +122,10 @@ class Gate(NamedTuple):
     col_oct: torch.Tensor  # [M] int32
     col_valid: torch.Tensor  # [M] bool
     row_umin: Optional[torch.Tensor] = None  # stereo: uL - max_d
-    row_ur: Optional[torch.Tensor] = None  # points: predicted right u
-    col_ur: Optional[torch.Tensor] = None  # points: right u, < 0 where none
+    row_ur: Optional[torch.Tensor] = None  # points, fuse: predicted right u
+    col_ur: Optional[torch.Tensor] = None  # points, fuse: right u, < 0 where none
     oct_mode: str = "both"  # frame: "forward", "backward" or "both"
+    col_isig: Optional[torch.Tensor] = None  # fuse: 1 / sigma^2 of the column's octave
 
 
 def _window(g: Gate) -> torch.Tensor:
@@ -160,7 +166,24 @@ def _gate_points(g: Gate) -> torch.Tensor:
     return _window(g) & oct_gate & stereo_gate & g.row_valid[:, None] & g.col_valid[None, :]
 
 
-_GATES = {"stereo": _gate_stereo, "frame": _gate_frame, "points": _gate_points}
+def _gate_fuse(g: Gate) -> torch.Tensor:
+    """fuse_match: window, octave in [pred-1, pred], and the reprojection
+    chi2 ((du*du + dv*dv) + er*er) * isig <= 7.8 where the keypoint has a
+    right u, else (du*du + dv*dv) * isig <= 5.99 (the kernel computes the
+    same float32 operations in this order, without contraction)."""
+    du = g.col_uv[None, :, 0] - g.row_uv[:, 0, None]
+    dv = g.col_uv[None, :, 1] - g.row_uv[:, 1, None]
+    oc, pl = g.col_oct[None, :], g.row_oct[:, None]
+    oct_gate = (oc >= pl - 1) & (oc <= pl)
+    er = g.row_ur[:, None] - g.col_ur[None, :]
+    e2_mono = du * du + dv * dv
+    e2_stereo = e2_mono + er * er
+    isig = g.col_isig[None, :]
+    chi_ok = torch.where(g.col_ur[None, :] >= 0, e2_stereo * isig <= 7.8, e2_mono * isig <= 5.99)
+    return _window(g) & oct_gate & chi_ok & g.row_valid[:, None] & g.col_valid[None, :]
+
+
+_GATES = {"stereo": _gate_stereo, "frame": _gate_frame, "points": _gate_points, "fuse": _gate_fuse}
 
 
 def gate_mask(g: Gate) -> torch.Tensor:
@@ -215,11 +238,11 @@ def candidate_buckets(g: Gate):
 # K3 wrappers
 # ---------------------------------------------------------------------------
 
-_MODES = {"mask": 0, "stereo": 1, "frame": 2, "points": 3}
+_MODES = {"mask": 0, "stereo": 1, "frame": 2, "points": 3, "fuse": 4}
 _OCT_MODES = {"forward": 0, "backward": 1, "both": 2}
 _PTRS = (
     "a", "b", "mask", "row_uv", "row_r", "row_umin", "row_ur", "row_oct", "row_valid", "col_uv",
-    "col_ur", "col_oct", "col_valid", "out",
+    "col_ur", "col_oct", "col_valid", "col_isig", "out",
 )
 #: the gated modes sort their columns in shared memory, 4 bytes per column
 MAX_COLUMNS = 16384
@@ -261,10 +284,19 @@ def _launch(mode: str, A, B, tensors: dict, oct_mode: str = "both"):
     return tuple(out.unbind(0)), args.n_blocks > 0
 
 
-def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor):
+_count_lock = threading.Lock()
+
+
+def _count(counts: dict, key: str, launched: bool):
+    with _count_lock:
+        counts[key] += launched
+
+
+def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "search_by_bow"):
     """K3 in mask mode: the plain version for CPU tensors, one launch of
-    `hamming_best2_launch` for CUDA tensors. A row with no candidate, and
-    every row when M == 0, answers (0, 256, 0, 256)."""
+    `hamming_best2_launch` for CUDA tensors, counted under `caller` (the
+    tracker's search_by_bow, or the mapper's epipolar_match). A row with no
+    candidate, and every row when M == 0, answers (0, 256, 0, 256)."""
     if A.device.type == "cpu":
         return best2_plain(A, B, mask)
     dev = _device(A, "best2")
@@ -273,11 +305,12 @@ def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor):
         raise ValueError(f"best2: mask must be bool [{N}, {M}] on {dev}, got {mask.dtype} "
                          f"{tuple(mask.shape)} on {mask.device}")
     out, launched = _launch("mask", A, B, {"mask": mask.contiguous()})
-    best2.launches += launched
+    _count(best2.launches, caller, launched)
     return out
 
 
-best2.launches = 0
+#: launches per caller
+best2.launches = {"search_by_bow": 0, "epipolar_match": 0}
 
 
 def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
@@ -289,12 +322,12 @@ def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
         return best2_gated_plain(A, B, g)
     _device(A, "best2_gated")
     out, launched = _launch_gated(A, B, g)
-    best2_gated.launches[g.mode] += launched
+    _count(best2_gated.launches, g.mode, launched)
     return out
 
 
 #: launches per gated mode
-best2_gated.launches = {"stereo": 0, "frame": 0, "points": 0}
+best2_gated.launches = {"stereo": 0, "frame": 0, "points": 0, "fuse": 0}
 
 
 def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
@@ -311,9 +344,11 @@ def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
     }
     if g.mode == "stereo":
         want["row_umin"] = (torch.float32, (N,))
-    elif g.mode == "points":
+    elif g.mode in ("points", "fuse"):
         want["row_ur"] = (torch.float32, (N,))
         want["col_ur"] = (torch.float32, (M,))
+        if g.mode == "fuse":
+            want["col_isig"] = (torch.float32, (M,))
     elif g.mode != "frame":
         raise ValueError(f"best2_gated: unknown mode {g.mode!r}")
     tensors = {}

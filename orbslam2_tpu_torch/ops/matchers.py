@@ -2,13 +2,15 @@
 matching, rotation-consistency filtering.
 
 Port of the parts of orbslam2_tpu/ops/matchers.py that the stereo
-tracking path calls (reference src/ORBmatcher.cpp). Each matcher is a
-gated all-pairs problem: it computes the per-row parts of its geometric
-gate (band or window half-size) with the plain expressions, and kernel K3
-(`hamming.best2_gated`) takes the gated Hamming best and second best per
-row, evaluating the pairwise gate itself on a CUDA tensor; on a CPU
-tensor the gate is the plain [N, M] mask of `hamming.gate_mask`.
-`search_by_bow` keeps a plain mask (`hamming.best2`).
+tracking and local mapping paths call (reference src/ORBmatcher.cpp).
+Each matcher is a gated all-pairs problem: it computes the per-row parts
+of its geometric gate (band or window half-size) with the plain
+expressions, and kernel K3 (`hamming.best2_gated`) takes the gated Hamming
+best and second best per row, evaluating the pairwise gate itself on a
+CUDA tensor; on a CPU tensor the gate is the plain [N, M] mask of
+`hamming.gate_mask`. `search_by_bow` and `epipolar_match` keep a plain
+mask (`hamming.best2`): the epipolar line crosses the image, so a v band
+would prune nothing there.
 
 The JAX package's one-hot matmuls that stood in for gathers and scatters
 on the TPU (`_choice_matrix`, `_fetch`, `lookup_level`) are plain indexing
@@ -160,3 +162,52 @@ def search_by_projection_points(
     ok = (best <= hamming.TH_HIGH) & ratio_ok & valid_pt
     d_eff = torch.where(ok, best, hamming.MAX_DIST)
     return _resolve_collisions(best_idx, d_eff, uv_cur.shape[0])
+
+
+def epipolar_match(uv1, desc1, free1, angle1, stereo1, uv2, oct2, desc2, free2, angle2, stereo2,
+                   F12: torch.Tensor, epipole2: torch.Tensor, scale_factors: torch.Tensor,
+                   level_sigma2: torch.Tensor):
+    """Best epipolar-consistent match in kf2 for each free kf1 feature
+    (reference SearchForTriangulation, ORBmatcher.cpp:489-669): Hamming <
+    TH_LOW, epipolar distance^2 < 3.84 sigma2(oct2), mono-mono pairs more
+    than 10 sqrt(sf(oct2)) px from the epipole, rotation consistency, and
+    kf2-side uniqueness where every kf1 row tied at a column's best
+    distance wins. Returns (match index per kf1 feature [-1 none], best
+    distance)."""
+    ones = torch.ones((uv1.shape[0], 1), dtype=uv1.dtype, device=uv1.device)
+    line = torch.cat([uv1, ones], dim=-1) @ F12  # [N, 3]: (a, b, c) of the line in image 2
+    a, b, c = line[:, 0:1], line[:, 1:2], line[:, 2:3]
+    num = a * uv2[None, :, 0] + b * uv2[None, :, 1] + c
+    den = a * a + b * b
+    dsq = num * num / torch.where(den < 1e-12, 1e-12, den)
+    oct2l = oct2.long()
+    epi_ok = dsq < 3.84 * level_sigma2[oct2l][None, :]
+    de = uv2 - epipole2[None, :]
+    epipole_dist2 = torch.sum(de * de, dim=-1)
+    both_mono = ~stereo1[:, None] & ~stereo2[None, :]
+    epipole_ok = ~both_mono | (epipole_dist2 >= 100.0 * scale_factors[oct2l])[None, :]
+    mask = epi_ok & epipole_ok & free1[:, None] & free2[None, :]
+    best_idx, best, _, _ = hamming.best2(desc1, desc2, mask, caller="epipolar_match")
+    ok = best < hamming.TH_LOW
+    idx = best_idx.long()
+    ok = rotation_consistency_mask(angle1, angle2[idx], ok)
+    d_eff = torch.where(ok, best, hamming.MAX_DIST)
+    per2_best = torch.full((uv2.shape[0],), hamming.MAX_DIST, dtype=d_eff.dtype, device=d_eff.device)
+    per2_best = per2_best.scatter_reduce(0, idx, d_eff, reduce="amin")
+    win = ok & (d_eff == per2_best[idx])
+    return torch.where(win, best_idx, -1), best
+
+
+def fuse_match(uv_kp, oct_kp, ur_kp, desc_kp, valid_kp, uv_pt, ur_pt, level_pt, desc_pt, valid_pt,
+               scale_factors: torch.Tensor, inv_level_sigma2: torch.Tensor, th: float = 3.0):
+    """Map-point fusion into a keyframe (reference ORBmatcher::Fuse,
+    ORBmatcher.cpp:671-821): for each projected point the best keypoint
+    within radius th sigma(predicted level), octave in [pred-1, pred],
+    reprojection chi2 <= 5.99 (mono keypoint) / 7.8 (stereo keypoint),
+    Hamming <= TH_LOW, through K3's `fuse` mode. Returns (keypoint index
+    per point [-1 none], best distance)."""
+    gate = hamming.Gate("fuse", uv_pt, th * scale_factors[level_pt.long()], level_pt, valid_pt,
+                        uv_kp, oct_kp, valid_kp, row_ur=ur_pt, col_ur=ur_kp,
+                        col_isig=inv_level_sigma2[oct_kp.long()])
+    best_idx, best, _, _ = hamming.best2_gated(desc_pt, desc_kp, gate)
+    return torch.where(best <= hamming.TH_LOW, best_idx, -1), best

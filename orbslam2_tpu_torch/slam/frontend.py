@@ -59,6 +59,7 @@ class Frontend:
             orb.scale_factors(self.orb_params), dtype=torch.float32, device=self.device
         )
         self.level_sigma2 = np.asarray(orb.level_sigma2(self.orb_params))
+        self.inv_level_sigma2 = torch.tensor(1.0 / self.level_sigma2, dtype=torch.float32, device=self.device)
         self._bf = float(cc.bf)
         self._baseline = float(c.baseline)
 

@@ -2,11 +2,13 @@
 the JAX package's JAX-free modules equal their originals, and its kernel
 wrappers choose their path by the device of the tensor they are given."""
 
+import ast
 import dataclasses
 import os
 import re
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -26,6 +28,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.mark.parametrize("module", [
     "orbslam2_tpu_torch.slam.system",
+    "orbslam2_tpu_torch.slam.local_mapping",
     "orbslam2_tpu_torch.datasets.synthetic",
     "orbslam2_tpu_torch.evaluation.ate",
     "orbslam2_tpu_torch.convert",
@@ -43,7 +46,13 @@ def test_imports_without_jax(module):
     assert out.returncode == 0 and out.stdout.strip() == "ok", (out.stdout, out.stderr)
 
 
-@pytest.mark.parametrize("part", ["config", "timing", "ate", "pattern"])
+def _code_below_docstring(path):
+    tree = ast.parse(open(path).read())
+    tree.body = tree.body[1:] if isinstance(tree.body[0], ast.Expr) else tree.body
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize("part", ["config", "timing", "ate", "pattern", "pipeline"])
 def test_copies_equal_jax_package(part):
     if part == "config":
         for name in ("CameraConfig", "OrbConfig", "RectifyConfig"):
@@ -67,6 +76,9 @@ def test_copies_equal_jax_package(part):
         for with_scale in (False, True):
             assert tate.ate_rmse(est, gt, with_scale=with_scale) == jate.ate_rmse(
                 est, gt, with_scale=with_scale)
+    elif part == "pipeline":
+        assert _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu", "slam", "pipeline.py")) == \
+            _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu_torch", "slam", "pipeline.py"))
     else:
         with open(os.path.join(ROOT, "orbslam2_tpu", "ops", "orb_pattern.npy"), "rb") as a, \
                 open(os.path.join(ROOT, "orbslam2_tpu_torch", "ops", "orb_pattern.npy"), "rb") as b:
@@ -103,7 +115,7 @@ def _gate(device):
 
 
 def test_cpu_tensors_take_the_plain_version():
-    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
+    before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, dict(hamming.best2.launches))
     gated_before = dict(hamming.best2_gated.launches)
     img = torch.rand((2, 48, 64)) * 255
     fast.fast_nms(img)
@@ -111,10 +123,36 @@ def test_cpu_tensors_take_the_plain_version():
     patches.orb_patch_desc(img, xs, xs)
     d = torch.zeros((3, 8), dtype=torch.int32)
     hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool))
+    hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool), caller="epipolar_match")
     hamming.best2_gated(d, d, _gate("cpu"))
-    after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, hamming.best2.launches)
+    hamming.best2_gated(d, d, _gate("cpu")._replace(mode="fuse", col_isig=torch.ones(3)))
+    after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, dict(hamming.best2.launches))
     assert after == before
     assert hamming.best2_gated.launches == gated_before
+
+
+def test_launch_counters_do_not_lose_updates():
+    """The mapping worker thread counts K3 launches beside the tracker: 16
+    threads adding to one counter, with the interpreter switching threads
+    every microsecond, lose no update."""
+    counts, n_threads, n_adds = {"k": 0}, 16, 2000
+
+    def add():
+        for _ in range(n_adds):
+            hamming._count(counts, "k", True)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=add) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert counts["k"] == n_threads * n_adds
 
 
 def test_kernel_library_key_tracks_sources():

@@ -1,5 +1,6 @@
 """The PyTorch port's `System` alone over the 40-frame synthetic sequence of
-tests/test_tracking.py, on the CPU (the kernels' plain versions).
+tests/test_tracking.py, on the CPU (the kernels' plain versions), with
+its local mapper inline on every keyframe.
 
 Stated bars: >= 39 of 40 frames tracked and ATE RMSE < 0.06 m (those of
 tests/test_tracking.py); the four trajectory savers equal the JAX
@@ -45,7 +46,9 @@ def test_tracks_sequence(run):
     assert len(system.tracker.trajectory) == N_FRAMES
     for e in system.tracker.trajectory:
         assert e.ref_kf in system.map.kf_pose
-    assert "Fused frame step" in system.shutdown()
+    assert system.local_mapper.n_processed >= 2 and system.local_mapper.n_local_ba >= 1
+    report = system.shutdown()
+    assert "Fused frame step" in report and "Map point creation" in report
 
 
 def test_trajectory_savers(run, tmp_path):
@@ -81,8 +84,8 @@ def test_reset(run):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(vocabulary="vocab.npz"), dict(threaded=True), dict(sensor="monocular"),
-    dict(use_viewer=True), dict(deferred_mapping=True),
+    dict(vocabulary="vocab.npz"), dict(mesh=object()), dict(sensor="monocular"),
+    dict(use_viewer=True), dict(settings=torch_config.SlamConfig(camera=torch_config.CameraConfig(k1=0.1))),
 ])
 def test_refuses_unported_options(kw):
     args = dict(vocabulary=None, settings=slam_config(SyntheticWorld(n_points=10, seed=0), torch_config),

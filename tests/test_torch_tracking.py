@@ -6,8 +6,9 @@ Stated tolerances:
   * one fused frame step (`_full_step`) on the JAX tracker's own assembled
     arguments: motion and local-map matches (pfk, pfk2) equal on >= 99% of
     keypoints, Tcw within 1e-3 m / 1e-3 rad;
-  * the port's tracker against the JAX tracker over the first 12 frames:
-    the same state every frame, camera poses within 1 cm.
+  * the port's tracker against the JAX tracker over the first 12 frames,
+    both without a local mapper: the same state every frame, camera poses
+    within 1 cm.
 """
 
 import jax
@@ -22,7 +23,9 @@ from orbslam2_tpu.slam.tracking import Tracker as JaxTracker
 from orbslam2_tpu_torch import config as torch_config
 from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
-from orbslam2_tpu_torch.slam.system import System
+from orbslam2_tpu_torch.slam.frontend import Frontend
+from orbslam2_tpu_torch.slam.map import SlamMap
+from orbslam2_tpu_torch.slam.tracking import Tracker
 
 N_PARITY = 12
 
@@ -52,12 +55,14 @@ def runs():
     args, _ = jt._assemble_fused(images_u8)
     jax_step = jax.device_get(jt._jit_full_step(*args))
 
-    system = System(None, slam_config(world, torch_config), device="cpu")
+    # tracker-only parity: the port's Tracker without a mapper, as the JAX one
+    tcfg = slam_config(world, torch_config)
+    tt = Tracker(tcfg, Frontend(tcfg, "cpu"), SlamMap(tcfg.orb.n_features))
     port_out = []
     for i, (imL, imR) in enumerate(frames[:N_PARITY]):
-        T = system.track_stereo(imL, imR, timestamp=i / 20.0)
-        port_out.append((system.tracker.state.name, T))
-    port_step = system.tracker._full_step(*convert.full_step_args_to_torch(args, "cpu"))
+        T = tt.track(imL, imR, timestamp=i / 20.0)
+        port_out.append((tt.state.name, T))
+    port_step = tt._full_step(*convert.full_step_args_to_torch(args, "cpu"))
     return dict(jax_out=jax_out, port_out=port_out, jax_step=jax_step, port_step=port_step)
 
 
