@@ -8,7 +8,8 @@ Two kinds of things cross the boundary:
     numpy code from the same pattern file, so the port needs no JAX to
     have them; the tests hold them equal to the JAX package's;
   * arrays: a JAX `FrameFeatures`, the argument tuple of the JAX
-    tracker's `_full_step` and a point-major BA problem become the port's
+    tracker's `_full_step`, a point-major BA problem and a BoW
+    `Vocabulary` (the "weights" of relocalization) become the port's
     tensors. Anything with `__array__` converts, so this module never
     imports JAX.
 
@@ -191,3 +192,13 @@ def ba_problem_pm_to_torch(prob, device):
     t = {name: to_torch(getattr(prob, name), device) for name in ba.BAProblemPM._fields}
     t["obs_kf"] = t["obs_kf"].long()
     return ba.BAProblemPM(**t)
+
+
+def vocabulary_to_torch(voc, device):
+    """A JAX `Vocabulary` (or any object with its fields, numpy-convertible)
+    -> the port's `vocab.bow.Vocabulary` on `device`, with the children's
+    descriptor bits as int32 words."""
+    from .vocab import bow
+
+    return bow.from_arrays(voc.children_desc, voc.children_idx, voc.node_word, voc.word_weight,
+                           int(voc.k), int(voc.depth), device)

@@ -2,9 +2,10 @@
 
 Route: nvcc by hand into one shared library with a plain C interface,
 loaded with ctypes. No PyTorch headers are compiled, so a cold build takes
-seconds. The library lands in `build/kernels/` at the repository root,
-keyed by a hash of the sources and flags, and is built at first use; a
-failed build raises with nvcc's output.
+seconds: one nvcc process per source, all started together, then one
+link. The library lands in `build/kernels/` at the repository root, keyed
+by a hash of the sources and flags, and is built at first use; a failed
+build raises with nvcc's output.
 
 Every exported launcher has the signature `int fn(<pointers>, <ints>,
 void* stream)` and returns `cudaGetLastError()` right after its launch;
@@ -40,6 +41,7 @@ SIGNATURES = {
     "orb_patch_desc_levels_launch": (1, 0),
     "fast_nms_levels_launch": (1, 0),
     "hamming_best2_launch": (1, 0),
+    "bow_transform_launch": (1, 0),
 }
 
 _lock = threading.Lock()
@@ -81,12 +83,29 @@ def load() -> ctypes.CDLL:
             os.makedirs(_BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
             cu = [s for s in _sources() if s.endswith(".cu")]
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", _CSRC, "-o", tmp, *cu]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    "nvcc failed (%d):\n%s\n%s" % (proc.returncode, proc.stdout, proc.stderr)
-                )
+            objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            procs = [
+                subprocess.Popen([_nvcc(), *compile_flags, "-I", _CSRC, "-c", "-o", o, s],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for s, o in zip(cu, objs)
+            ]
+            try:
+                for p in procs:
+                    out, err = p.communicate()
+                    if p.returncode != 0:
+                        raise RuntimeError(f"nvcc failed ({p.returncode}) on {p.args[-1]}:\n{out}\n{err}")
+                link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs], capture_output=True, text=True)
+                if link.returncode != 0:
+                    raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for o in objs:
+                    if os.path.exists(o):
+                        os.remove(o)
             os.replace(tmp, so)
         lib = ctypes.CDLL(so)
         for name, (n_ptr, n_int) in SIGNATURES.items():

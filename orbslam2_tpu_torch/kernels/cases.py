@@ -1,4 +1,5 @@
-"""Edge cases of kernel K3 (`csrc/hamming_best2.cu`) in each of its modes.
+"""Edge cases of kernels K3 (`csrc/hamming_best2.cu`, in each of its modes)
+and K4 (`csrc/bow_transform.cu`).
 
 `k3_cases(device)` builds small inputs that the gated modes' pruning and
 exact gates must get right, each with its plain version's answer defined
@@ -21,6 +22,19 @@ by `hamming.best2_plain` / `best2_gated_plain`:
 `chip_smoke.py` and `tests/test_torch_kernels.py` hold the kernel to its
 plain version on them on the card; `tests/test_torch_matchers.py` holds
 the candidate rule (`hamming.candidate_buckets`) on them on the CPU.
+
+`k4_cases(device)` builds vocabulary trees and descriptors for K4:
+  * a hand-built ragged tree (`ragged_tree`): a leaf one step below the
+    root, a missing child between two present ones, a node with no child
+    slot filled past the first, children with equal descriptors (ties go
+    to the lowest child index), queries equal to node descriptors, their
+    complements, all-zero and all-ones descriptors, invalid slots, every
+    FeatureVector level;
+  * a random tree with k = 40 > 32 children (two passes of the warp) and
+    tie-heavy descriptors;
+  * N == 0.
+`tests/test_torch_vocab_pnp.py` holds the plain version to the JAX
+package's `transform_words_nodes` on them on the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops import hamming
+from ..vocab import bow
 
 TIE_WORDS = np.array([0, 1, 3, -1, -(2**31)], np.int32)
 #: 1 / sigma^2 per octave at scale factor 1.2 (Frontend.inv_level_sigma2)
@@ -202,3 +217,104 @@ def k3_plain(A, B, gate):
     if isinstance(gate, hamming.Gate):
         return hamming.best2_gated_plain(A, B, gate)
     return hamming.best2_plain(A, B, gate)
+
+
+# ---------------------------------------------------------------------------
+# K4: vocabulary trees
+# ---------------------------------------------------------------------------
+
+
+def _tree_arrays(children: dict, n_nodes: int, k: int, node_desc: np.ndarray):
+    """(children_desc uint32 [n_nodes, k, 8], children_idx, node_word,
+    word_weight) of a tree given as {node: [child id or -1 per slot]}; a
+    node without entry, or with only -1, is a leaf."""
+    children_idx = np.full((n_nodes, k), -1, np.int32)
+    children_desc = np.zeros((n_nodes, k, 8), np.uint32)
+    for node, ch in children.items():
+        for j, c in enumerate(ch):
+            children_idx[node, j] = c
+            if c >= 0:
+                children_desc[node, j] = node_desc[c]
+    leaf = (children_idx < 0).all(axis=1)
+    leaf[0] = False
+    node_word = np.full(n_nodes, -1, np.int32)
+    node_word[leaf] = np.arange(int(leaf.sum()), dtype=np.int32)
+    word_weight = np.linspace(0.5, 2.0, int(leaf.sum())).astype(np.float32)
+    return children_desc, children_idx, node_word, word_weight
+
+
+def ragged_tree(rng):
+    """A hand-built tree, k = 4, depth 3, as numpy arrays (the JAX
+    package's `Vocabulary` fields, descriptors as uint32): node 1 is a leaf
+    one step below the root and ties with node 2 there; node 2 misses its
+    slot 1 between present slots; nodes 7, 8 and 9 hold one descriptor
+    (a three-way tie), as do nodes 4 and 6; node 5 has two children and
+    two missing slots."""
+    n_nodes = 13
+    children = {0: [1, 2, 3, -1], 2: [4, -1, 5, 6], 3: [7, 8, 9, 10], 5: [11, 12, -1, -1]}
+    # each child is its parent with ~24 bits flipped, as a trained tree's
+    # clusters lie near their parent, so that queries reach every node
+    node_desc = np.zeros((n_nodes, 8), np.uint32)
+    node_desc[0] = rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.uint32)
+    for parent in (0, 2, 3, 5):
+        for c in children[parent]:
+            if c >= 0:
+                flips = (rng.uniform(size=(8, 32)) < 0.1) << np.arange(32, dtype=np.uint64)
+                node_desc[c] = node_desc[parent] ^ flips.sum(axis=1).astype(np.uint32)
+    node_desc[2] = node_desc[1] ^ np.array([1, 1, 0, 0, 0, 0, 0, 0], np.uint32)
+    node_desc[8] = node_desc[9] = node_desc[7]
+    node_desc[6] = node_desc[4]
+    return (*_tree_arrays(children, n_nodes, 4, node_desc), 4, 3), node_desc
+
+
+def wide_tree(rng, k=40):
+    """A random tree with k children per node (some missing), depth 2,
+    tie-heavy descriptors: two passes of K4's warp over the children."""
+    kids = {0: list(range(1, k + 1))}
+    nxt = k + 1
+    for node in range(1, k + 1):
+        m = int(rng.integers(0, k + 1))
+        slots = [-1] * k
+        for j in sorted(rng.choice(k, m, replace=False)):
+            slots[j] = nxt
+            nxt += 1
+        kids[node] = slots
+    node_desc = TIE_WORDS[rng.integers(0, len(TIE_WORDS), (nxt, 8))].view(np.uint32)
+    return (*_tree_arrays(kids, nxt, k, node_desc), k, 2), node_desc
+
+
+def k4_raw_cases(seed: int = 0):
+    """[(name, (children_desc, children_idx, node_word, word_weight, k,
+    depth), desc uint32 [N, 8], valid [N], node_level)] as numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    voc, node_desc = ragged_tree(rng)
+    q = [node_desc, ~node_desc, np.zeros((2, 8), np.uint32), np.full((2, 8), 0xFFFFFFFF, np.uint32),
+         rng.integers(0, 2**32, (300, 8), dtype=np.uint64).astype(np.uint32)]
+    desc = np.concatenate(q)
+    # single-bit neighbours of the tied descriptors (node 1 with bit 0 of
+    # word 0 or 1 flipped lies at 1 from both nodes 1 and 2)
+    near = np.repeat(node_desc[[1, 2, 4, 7]], 32, axis=0)
+    near[np.arange(128), np.arange(128) % 8] ^= np.uint32(1) << (np.arange(128) % 32).astype(np.uint32)
+    desc = np.concatenate([desc, near])
+    valid = rng.uniform(size=len(desc)) < 0.9
+    valid[: 2 * len(node_desc) + 4] = True
+    for level in (1, 2, 3):
+        out.append((f"ragged tree, level {level}", voc, desc, valid, level))
+    voc, node_desc = wide_tree(rng)
+    desc = np.concatenate([node_desc[rng.integers(0, len(node_desc), 200)],
+                           TIE_WORDS[rng.integers(0, len(TIE_WORDS), (200, 8))].view(np.uint32)])
+    out.append(("k = 40 tree, ties", voc, desc, rng.uniform(size=len(desc)) < 0.9, 1))
+    out.append(("N == 0", voc, np.zeros((0, 8), np.uint32), np.zeros(0, bool), 2))
+    return out
+
+
+def k4_cases(device, seed: int = 0):
+    """[(name, vocabulary, desc int32 [N, 8], valid [N], node_level)] on
+    `device`: `k4_raw_cases` as the port's tensors."""
+    out = []
+    for name, voc, desc, valid, level in k4_raw_cases(seed):
+        out.append((name, bow.from_arrays(*voc, device=device),
+                    torch.from_numpy(np.ascontiguousarray(desc).view(np.int32).copy()).to(device),
+                    torch.from_numpy(valid.copy()).to(device), level))
+    return out

@@ -295,7 +295,8 @@ def _count(counts: dict, key: str, launched: bool):
 def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "search_by_bow"):
     """K3 in mask mode: the plain version for CPU tensors, one launch of
     `hamming_best2_launch` for CUDA tensors, counted under `caller` (the
-    tracker's search_by_bow, or the mapper's epipolar_match). A row with no
+    tracker's search_by_bow, the mapper's epipolar_match, or the
+    relocalizer's search_by_bow). A row with no
     candidate, and every row when M == 0, answers (0, 256, 0, 256)."""
     if A.device.type == "cpu":
         return best2_plain(A, B, mask)
@@ -310,7 +311,7 @@ def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "s
 
 
 #: launches per caller
-best2.launches = {"search_by_bow": 0, "epipolar_match": 0}
+best2.launches = {"search_by_bow": 0, "epipolar_match": 0, "relocalization": 0}
 
 
 def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):

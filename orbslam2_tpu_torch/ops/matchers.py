@@ -63,12 +63,14 @@ def rotation_consistency_mask(
     return match_valid & ok
 
 
-def search_by_bow(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b, ratio: float):
+def search_by_bow(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b, ratio: float,
+                  caller: str = "search_by_bow"):
     """SearchByBoW core (reference ORBmatcher.cpp:110-239) without the
-    vocabulary: mutual-ratio Hamming matching + rotation consistency.
-    Returns (idx [A] into B, best [A], keep [A])."""
+    vocabulary: mutual-ratio Hamming matching + rotation consistency, K3's
+    launch counted under `caller` (the tracker's reference-keyframe path,
+    or `relocalization`). Returns (idx [A] into B, best [A], keep [A])."""
     mask = valid_a[:, None] & valid_b[None, :]
-    idx, best, _, second = hamming.best2(desc_a, desc_b, mask)
+    idx, best, _, second = hamming.best2(desc_a, desc_b, mask, caller)
     ok = (best < hamming.TH_LOW) & (best < ratio * second)
     keep = rotation_consistency_mask(angle_a, angle_b[idx.long()], ok)
     return idx, best, keep

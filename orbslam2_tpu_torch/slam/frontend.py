@@ -104,6 +104,9 @@ class FrameHost:
             self._fetch_host()
         n = features.valid.shape[0]
         self.point_ids = np.full(n, -1, np.int64)  # matched map point per kp
+        #: localization mode: kp index -> world position of the
+        #: visual-odometry point it matched (never enters the map)
+        self.temp_points: dict = {}
         self.outlier = np.zeros(n, bool)
         self.Tcw: Optional[np.ndarray] = None  # [4,4] float32
 

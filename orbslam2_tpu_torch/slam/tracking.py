@@ -6,12 +6,16 @@ ORB + stereo matching, motion-model matching and pose optimization,
 local-map matching and pose optimization), the motion-model, local-map
 and reference-keyframe paths that frame 1 and every motion failure take,
 the keyframe decision and creation (handing each keyframe to the local
-mapper), and trajectory bookkeeping. Host code is control flow and map
-admin in numpy; matching and optimization run on the tracker's device.
+mapper), relocalization of a lost frame (through the `relocalizer` that
+`System` wires when it is given a vocabulary; None otherwise, and a lost
+tracker then stays lost), localization mode (`only_tracking`: no
+keyframes, visual-odometry points from the last frame's close stereo
+features, never fused) and trajectory bookkeeping. Host code is control
+flow and map admin in numpy; matching and optimization run on the
+tracker's device.
 
-Not ported yet: pipelined tracking (not to be ported), localization mode,
-the monocular paths and relocalization (`relocalizer` stays None, as in
-the JAX package's `System(vocabulary=None)`).
+Not ported yet: pipelined tracking (not to be ported) and the monocular
+paths.
 """
 
 from __future__ import annotations
@@ -69,6 +73,9 @@ class Tracker:
         self.device = frontend.device
         self.map = slam_map
         self.local_mapper = None  # LocalMapper, wired by System
+        self.relocalizer = None  # Relocalizer, wired by System with a vocabulary
+        #: localization mode: track against the map without mapping
+        self.only_tracking = False
         self.cam = frontend.camera
         self.state = TrackingState.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None  # Tcl (cur <- last)
@@ -247,12 +254,13 @@ class Tracker:
 
     def _can_fuse(self) -> bool:
         """The fused step covers the steady-state stereo hot path; every
-        other state, and deferred mapping (which pumps the mapper between
-        the steps), routes through the motion-model / reference-keyframe
-        paths."""
+        other state, localization mode (visual-odometry points) and
+        deferred mapping (which pumps the mapper between the steps) route
+        through the motion-model / reference-keyframe paths."""
         return (
             self.state == TrackingState.OK
             and self.velocity is not None
+            and not self.only_tracking
             and self.frame_id >= self.last_reloc_frame_id + 2
             and not self._deferred_mapping()
             and len(self.local_points) > 0
@@ -320,8 +328,9 @@ class Tracker:
                         ok = self._track_with_motion_model(frame)
                         if not ok:
                             ok = self._track_reference_keyframe(frame)
-        else:  # LOST: relocalization is not ported yet
-            ok = False
+        else:  # LOST
+            with self._span("Relocalization"):
+                ok = self._relocalize(frame)
 
         if ok and not local_done:
             with self._span("Local map tracking"):
@@ -389,6 +398,14 @@ class Tracker:
             r = self.map.resolve_replaced(pid)
             if r != pid:
                 lf.point_ids[i] = r if r in self.map.pt_valid else -1
+
+    def _unproject(self, frame: FrameHost, i: int) -> np.ndarray:
+        """World position of keypoint i from its stereo depth."""
+        z = frame.depth[i]
+        u, v = frame.uv[i]
+        cam = self.config.camera
+        pc = np.array([(u - cam.cx) * z / cam.fx, (v - cam.cy) * z / cam.fy, z, 1.0])
+        return (np.linalg.inv(frame.Tcw) @ pc)[:3]
 
     def _pose_optimize(self, frame: FrameHost) -> int:
         """Pose optimization on the frame's current matches."""
@@ -547,10 +564,27 @@ class Tracker:
         frame.Tcw = T_pred
         pids = lf.point_ids.copy()
         has_pt = (pids >= 0) & self.map.valid_mask(pids)
-        pw = np.zeros((N, 3), np.float32)
+        pw = np.zeros((N, 3), np.float64)
         desc = np.zeros((N, 8), np.uint32)
+        is_temp = np.zeros(N, bool)
         pw[has_pt] = self.map.pt_pos[pids[has_pt]]
         desc[has_pt] = self.map.pt_desc[pids[has_pt]]
+        if self.only_tracking:
+            # visual-odometry points: unproject the last frame's close stereo
+            # features that have no map point, closest first (reference
+            # UpdateLastFrame, Tracking.cpp:648-712)
+            close = lf.valid & (lf.depth > 0) & ~has_pt
+            idxs = np.nonzero(close)[0]
+            idxs = idxs[np.argsort(lf.depth[idxs])]
+            n_vo = 0
+            for i in idxs:
+                if lf.depth[i] > self.config.depth_threshold and n_vo > 100:
+                    break
+                pw[i] = self._unproject(lf, int(i))
+                desc[i] = lf.desc[i]
+                has_pt[i] = True
+                is_temp[i] = True
+                n_vo += 1
 
         # forward/backward along the optical axis (reference ORBmatcher.cpp:1184-1194)
         tlc = (lf.Tcw @ np.linalg.inv(T_pred))[:3, 3]
@@ -558,13 +592,18 @@ class Tracker:
         fwd, bwd = bool(tlc[2] > b), bool(-tlc[2] > b)
 
         pfk, res = self._motion_step(
-            frame.dev, self._tensor(pw), self._tensor(has_pt), lf.dev.octave, lf.dev.angle,
-            convert.desc_to_torch(desc, self.device), self._tensor(T_pred), 7.0, fwd, bwd,
+            frame.dev, self._tensor(pw.astype(np.float32)), self._tensor(has_pt), lf.dev.octave,
+            lf.dev.angle, convert.desc_to_torch(desc, self.device), self._tensor(T_pred), 7.0, fwd, bwd,
         )
         pfk = pfk.cpu().numpy()
         frame.point_ids[:] = -1
         hit = pfk >= 0
-        frame.point_ids[hit] = pids[pfk[hit]]
+        # a match to a visual-odometry point stays out of the map
+        temp = np.zeros(N, bool)
+        temp[hit] = is_temp[pfk[hit]]
+        frame.temp_points = {int(i): pw[pfk[i]].copy() for i in np.nonzero(temp)[0]}
+        mapped = hit & ~temp
+        frame.point_ids[mapped] = pids[pfk[mapped]]
         if int(hit.sum()) < 20:
             self.events.append(dict(frame=frame.frame_id, gate="motion_matches_20",
                                     n=int(hit.sum())))
@@ -681,13 +720,18 @@ class Tracker:
         self.map.reference_points = pts
 
     def _assemble_existing(self, frame: FrameHost):
-        """Per-keypoint world positions of the frame's current matches."""
+        """Per-keypoint world positions of the frame's current matches: map
+        points, and localization mode's visual-odometry points."""
         pw = np.zeros((self._N, 3), np.float32)
         pids = frame.point_ids
         has = pids >= 0
         valid = has & self.map.valid_mask(pids)
         frame.point_ids[has & ~valid] = -1
         pw[valid] = self.map.pt_pos[pids[valid]]
+        for i, pos in frame.temp_points.items():
+            if not valid[i]:
+                pw[i] = pos
+                valid[i] = True
         return pw, valid
 
     def _search_local_points(self, frame: FrameHost):
@@ -755,6 +799,8 @@ class Tracker:
         """Reference Tracking::NeedNewKeyFrame (Tracking.cpp:824-897). The
         mapper is idle when it accepts keyframes (inline mapping always
         does); without a mapper the tracker counts it idle."""
+        if self.only_tracking:
+            return False
         lm = self.local_mapper
         if lm is not None and lm.is_stopped():
             return False
@@ -828,6 +874,14 @@ class Tracker:
         self.last_kf_id = frame.frame_id
 
     # ------------------------------------------------------------------
+
+    def _relocalize(self, frame: FrameHost) -> bool:
+        if self.relocalizer is None:
+            return False
+        ok = self.relocalizer.relocalize(frame)
+        if ok:
+            self.last_reloc_frame_id = frame.frame_id
+        return ok
 
     def _record_trajectory(self, frame: FrameHost):
         """Reference Tracking.cpp:503-520."""

@@ -1,0 +1,293 @@
+"""Bag-of-binary-words vocabulary as dense tensors, and kernel K4.
+
+Port of orbslam2_tpu/vocab/bow.py (reference Thirdparty/DBoW2/DBoW2/
+TemplatedVocabulary.h): the k^L tree of 256-bit descriptors is four
+tensors on the System's device,
+
+    children_desc [n_nodes, k, 8] int32 -- child descriptors per node
+    children_idx  [n_nodes, k] int32 -- child node ids (-1 = missing)
+    node_word     [n_nodes] int32 -- leaf word index (-1 for internal)
+    word_weight   [n_words] float32 -- idf weights
+
+with the descriptors' bits in int32 words, as the port keeps every
+descriptor (`convert.py`). `transform_words_nodes` descends the tree for
+all N descriptors of a frame: on a CUDA tensor it launches K4
+(`csrc/bow_transform.cu`, one warp per descriptor); on a CPU tensor it
+takes `transform_words_nodes_plain`, a loop of `depth` gather + XOR +
+popcount + masked argmin steps. The sparse tf-idf vector and the L1 score
+run on the host in numpy, as in the JAX package.
+
+Not ported (ROADMAP queue 1): the dense scorers (`bow_vector`, the six
+`*_score` functions), which only the JAX package's tests call, the
+vocabulary trainer (`vocab/train.py`) and the native DBoW2 text parser;
+`load_dbow2_text` here is the pure-Python parser.
+
+K4's launch counter is counted under a lock: the mapping worker thread
+indexes keyframes beside the tracker's relocalization attempts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..kernels import build
+from ..ops import hamming
+
+#: a missing child's distance (the JAX package's `1 << 30`)
+MISSING = 1 << 30
+
+
+class Vocabulary(NamedTuple):
+    children_desc: torch.Tensor  # [n_nodes, k, 8] int32 (the JAX package's uint32 bits)
+    children_idx: torch.Tensor  # [n_nodes, k] int32 (-1 = missing child)
+    node_word: torch.Tensor  # [n_nodes] int32, word id for leaves else -1
+    word_weight: torch.Tensor  # [n_words] float32 (idf)
+    k: int
+    depth: int
+
+    @property
+    def n_words(self) -> int:
+        return self.word_weight.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.children_desc.device
+
+
+def from_arrays(children_desc, children_idx, node_word, word_weight, k: int, depth: int,
+                device="cuda") -> Vocabulary:
+    """A `Vocabulary` on `device` from numpy-convertible arrays; descriptor
+    words may be uint32 or int32 (the same bits). Checks the table shapes
+    and that every child id names a node, since K4 follows them unchecked."""
+    cd = np.ascontiguousarray(np.asarray(children_desc))
+    cd = cd.astype(np.uint32, copy=False).view(np.int32) if cd.dtype != np.int32 else cd
+    ci = np.asarray(children_idx, np.int32)
+    nw = np.asarray(node_word, np.int32)
+    ww = np.asarray(word_weight, np.float32)
+    n_nodes = nw.shape[0]
+    if cd.shape != (n_nodes, k, 8) or ci.shape != (n_nodes, k):
+        raise ValueError(f"vocabulary tables: children_desc {cd.shape}, children_idx {ci.shape}, "
+                         f"{n_nodes} nodes, k = {k}")
+    if ci.size and int(ci.max()) >= n_nodes:
+        raise ValueError(f"vocabulary: child id {int(ci.max())} >= {n_nodes} nodes")
+    if depth < 1:
+        raise ValueError(f"vocabulary depth {depth} < 1")
+    dev = torch.device(device)
+    return Vocabulary(
+        children_desc=torch.from_numpy(cd.copy()).to(dev),
+        children_idx=torch.from_numpy(ci.copy()).to(dev),
+        node_word=torch.from_numpy(nw.copy()).to(dev),
+        word_weight=torch.from_numpy(ww.copy()).to(dev),
+        k=int(k), depth=int(depth),
+    )
+
+
+def to_device(voc: Vocabulary, device) -> Vocabulary:
+    """`voc` with its tables on `device`."""
+    dev = torch.device(device)
+    return voc._replace(**{f: getattr(voc, f).to(dev) for f in
+                           ("children_desc", "children_idx", "node_word", "word_weight")})
+
+
+def feature_node_level(depth: int) -> int:
+    """Tree level (steps from the root) of the FeatureVector grouping node:
+    DBoW2 transforms with levelsup=4 (reference KeyFrame.cpp:51-53), so 4
+    levels above the leaves, at least level 1."""
+    return max(1, depth - 4)
+
+
+def transform_words(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """desc [N, 8] int32 -> word ids [N] int32 (-1 for invalid slots)."""
+    words, _ = transform_words_nodes(voc, desc, valid, node_level=1)
+    return words
+
+
+def transform_words_nodes_plain(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
+                                node_level: int | None = None):
+    """Plain version of K4: (word ids [N] int32, FeatureVector node ids [N]
+    int32), both -1 for invalid slots. At each of `depth` steps the child
+    of least Hamming distance, a missing child counting MISSING, ties to
+    the lowest child index; a node without children stays put. The node id
+    is the one reached after `node_level` steps."""
+    if node_level is None:
+        node_level = feature_node_level(voc.depth)
+    n = desc.shape[0]
+    node = torch.zeros(n, dtype=torch.int64, device=desc.device)
+    level_node = node
+    for step in range(voc.depth):
+        cd = voc.children_desc[node]  # [N, k, 8]
+        ci = voc.children_idx[node]  # [N, k]
+        dist = hamming.popcount32(torch.bitwise_xor(cd, desc[:, None, :])).sum(dim=-1)
+        dist = torch.where(ci >= 0, dist, MISSING)
+        if ci.shape[1]:
+            nxt = torch.gather(ci, 1, torch.argmin(dist, dim=1, keepdim=True))[:, 0].long()
+        else:
+            nxt = node
+        node = torch.where(torch.all(ci < 0, dim=1), node, nxt)
+        if step == node_level - 1:
+            level_node = node
+    words = voc.node_word[node]
+    return (torch.where(valid, words, -1).to(torch.int32),
+            torch.where(valid, level_node, -1).to(torch.int32))
+
+
+class _K4Args(ctypes.Structure):
+    """`BowArgs` of csrc/bow_transform.cu. The launcher sets `n_blocks` to
+    the blocks it launched."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in
+                ("desc", "valid", "children_desc", "children_idx", "node_word", "out")] + [
+        (name, ctypes.c_int) for name in ("n", "k", "depth", "node_level", "n_nodes", "n_blocks")
+    ]
+
+
+_count_lock = threading.Lock()
+
+
+def transform_words_nodes(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tensor,
+                          node_level: int | None = None):
+    """(word ids [N] int32, FeatureVector node ids [N] int32), -1 for
+    invalid slots (orbslam2_tpu/vocab/bow.py::transform_words_nodes). CPU
+    tensors take `transform_words_nodes_plain`; CUDA tensors take one
+    launch of K4, `bow_transform_launch`, which raises if refused."""
+    if node_level is None:
+        node_level = feature_node_level(voc.depth)
+    if desc.device.type == "cpu":
+        return transform_words_nodes_plain(voc, desc, valid, node_level)
+    dev = hamming._device(desc, "transform_words_nodes")
+    n = desc.shape[0]
+    if desc.dtype != torch.int32 or desc.shape[1:] != (8,):
+        raise ValueError(f"K4 takes int32 [N, 8] descriptors, got {desc.dtype} {tuple(desc.shape)}")
+    if valid.dtype != torch.bool or valid.shape != (n,) or valid.device != dev:
+        raise ValueError(f"K4: valid must be bool [{n}] on {dev}, got {valid.dtype} "
+                         f"{tuple(valid.shape)} on {valid.device}")
+    if voc.device != dev:
+        raise ValueError(f"K4: the vocabulary lies on {voc.device}, the descriptors on {dev}")
+    if not 1 <= node_level <= voc.depth:
+        raise ValueError(f"K4: node_level {node_level} outside 1..{voc.depth}")
+    out = torch.empty((2, n), dtype=torch.int32, device=dev)
+    desc, cd = hamming._aligned(desc), hamming._aligned(voc.children_desc)
+    valid = valid.contiguous()
+    args = _K4Args(desc=desc.data_ptr(), valid=valid.data_ptr(), children_desc=cd.data_ptr(),
+                   children_idx=voc.children_idx.contiguous().data_ptr(),
+                   node_word=voc.node_word.contiguous().data_ptr(), out=out.data_ptr(),
+                   n=n, k=voc.k, depth=voc.depth, node_level=node_level,
+                   n_nodes=voc.node_word.shape[0])
+    build.launch("bow_transform_launch", args)
+    if args.n_blocks:
+        with _count_lock:
+            transform_words_nodes.launches += 1
+    return out[0], out[1]
+
+
+transform_words_nodes.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# sparse BoW vectors (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def bow_sparse(words: np.ndarray, word_weight: np.ndarray):
+    """Sparse tf-idf BoW vector from per-descriptor word ids: (sorted unique
+    word ids [M] int64, L1-normalized weights [M] float32), the DBoW2
+    BowVector (BowVector.cpp addWeight + normalize)."""
+    uw, counts = np.unique(words[words >= 0], return_counts=True)
+    w = word_weight[uw] * counts
+    s = float(w.sum())
+    if s > 0:
+        w = w / s
+    return uw.astype(np.int64), w.astype(np.float32)
+
+
+def l1_score_sparse(a, b) -> float:
+    """L1 score of two sparse BoW vectors in O(shared words): 1 - 0.5
+    ||v - w||_1 over L1-normalized vectors is the sum over shared words of
+    min(v_i, w_i) (ScoringObject.cpp L1Scoring)."""
+    wid1, wv1 = a
+    wid2, wv2 = b
+    _, i1, i2 = np.intersect1d(wid1, wid2, assume_unique=True, return_indices=True)
+    if i1.size == 0:
+        return 0.0
+    return float(np.minimum(wv1[i1], wv2[i2]).sum())
+
+
+# ---------------------------------------------------------------------------
+# construction and files
+# ---------------------------------------------------------------------------
+
+
+def build_from_nodes(parents: np.ndarray, descriptors: np.ndarray, weights: np.ndarray,
+                     is_leaf: np.ndarray, k: int, depth: int, device="cuda") -> Vocabulary:
+    """A vocabulary from a DBoW2 node table: parents [n_nodes] (-1 for the
+    root, node 0), descriptors [n_nodes, 32] uint8 (root row ignored),
+    weights [n_nodes] (leaf idf weights), is_leaf [n_nodes]. A node's
+    children take its slots in node order."""
+    n_nodes = len(parents)
+    desc_u32 = np.ascontiguousarray(descriptors, np.uint8).view(np.uint32).reshape(n_nodes, 8)
+    node_word = np.full(n_nodes, -1, np.int32)
+    leaf_ids = np.nonzero(is_leaf)[0]
+    node_word[leaf_ids] = np.arange(len(leaf_ids), dtype=np.int32)
+    word_weight = weights[leaf_ids].astype(np.float32)
+    children_idx = np.full((n_nodes, k), -1, np.int32)
+    children_desc = np.zeros((n_nodes, k, 8), np.uint32)
+    if n_nodes > 1:
+        # a node's slot is its rank within its parent's group, by a stable
+        # sort on the parent (a per-node loop crawls at ORBvoc's ~1M nodes)
+        nodes = np.arange(1, n_nodes, dtype=np.int32)
+        p = parents[1:]
+        order = np.argsort(p, kind="stable")
+        ps = p[order]
+        group_start = np.concatenate([[0], np.nonzero(np.diff(ps))[0] + 1])
+        starts = np.zeros(len(ps), np.int64)
+        starts[group_start] = group_start
+        starts = np.maximum.accumulate(starts)
+        slot = np.arange(len(ps)) - starts
+        keep = slot < k
+        children_idx[ps[keep], slot[keep]] = nodes[order][keep]
+        children_desc[ps[keep], slot[keep]] = desc_u32[nodes[order][keep]]
+    return from_arrays(children_desc, children_idx, node_word, word_weight, k, depth, device)
+
+
+def load_dbow2_text(path: str, device="cuda") -> Vocabulary:
+    """A DBoW2 text vocabulary (the ORBvoc.txt format, reference System.cpp:
+    38-39; writer TemplatedVocabulary.h:1382-1416): header `k L scoring
+    weighting`, then per node `parent_id is_leaf d0..d31 weight`."""
+    with open(path) as f:
+        header = f.readline().split()
+        k, L = int(header[0]), int(header[1])
+        parents, descs, weights, leaves = [-1], [np.zeros(32, np.uint8)], [0.0], [False]
+        for line in f:
+            parts = line.split()
+            if len(parts) < 35:
+                continue
+            parents.append(int(parts[0]))
+            leaves.append(bool(int(parts[1])))
+            descs.append(np.array([int(x) for x in parts[2:34]], np.uint8))
+            weights.append(float(parts[34]))
+    return build_from_nodes(np.array(parents, np.int32), np.stack(descs), np.array(weights, np.float32),
+                            np.array(leaves, bool), k, L, device)
+
+
+def save_npz(voc: Vocabulary, path: str):
+    """The JAX package's .npz layout (descriptor words as uint32)."""
+    np.savez_compressed(
+        path,
+        children_desc=voc.children_desc.cpu().numpy().view(np.uint32),
+        children_idx=voc.children_idx.cpu().numpy(),
+        node_word=voc.node_word.cpu().numpy(),
+        word_weight=voc.word_weight.cpu().numpy(),
+        k=voc.k,
+        depth=voc.depth,
+    )
+
+
+def load_npz(path: str, device="cuda") -> Vocabulary:
+    z = np.load(path)
+    return from_arrays(z["children_desc"], z["children_idx"], z["node_word"], z["word_weight"],
+                       int(z["k"]), int(z["depth"]), device)

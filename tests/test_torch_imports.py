@@ -22,6 +22,7 @@ from orbslam2_tpu_torch.evaluation import ate as tate
 from orbslam2_tpu_torch.kernels import build
 from orbslam2_tpu_torch.ops import fast, hamming, patches
 from orbslam2_tpu_torch.slam import timing as ttiming
+from orbslam2_tpu_torch.vocab import bow
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,6 +33,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "orbslam2_tpu_torch.datasets.synthetic",
     "orbslam2_tpu_torch.evaluation.ate",
     "orbslam2_tpu_torch.convert",
+    "orbslam2_tpu_torch.vocab.bow, orbslam2_tpu_torch.vocab.database, orbslam2_tpu_torch.ops.pnp, "
+    "orbslam2_tpu_torch.slam.relocalization",
 ])
 def test_imports_without_jax(module):
     code = (
@@ -106,6 +109,17 @@ def test_wrappers_refuse_other_devices():
         hamming.best2(d, d, torch.zeros((3, 3), dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError):
         hamming.best2_gated(d, d, _gate("meta"))
+    with pytest.raises(ValueError):
+        bow.transform_words_nodes(_vocabulary("meta"), d, torch.ones(3, dtype=torch.bool, device="meta"))
+
+
+def _vocabulary(device):
+    """A root with two leaf children."""
+    cd = np.zeros((3, 2, 8), np.uint32)
+    cd[0, 1] = 0xFFFFFFFF
+    ci = np.array([[1, 2], [-1, -1], [-1, -1]], np.int32)
+    voc = bow.from_arrays(cd, ci, np.array([-1, 0, 1], np.int32), np.ones(2, np.float32), 2, 1, "cpu")
+    return bow.to_device(voc, device)
 
 
 def _gate(device):
@@ -126,9 +140,13 @@ def test_cpu_tensors_take_the_plain_version():
     hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool), caller="epipolar_match")
     hamming.best2_gated(d, d, _gate("cpu"))
     hamming.best2_gated(d, d, _gate("cpu")._replace(mode="fuse", col_isig=torch.ones(3)))
+    k4_before = bow.transform_words_nodes.launches
+    words, nodes = bow.transform_words_nodes(_vocabulary("cpu"), d, torch.tensor([True, False, True]))
+    assert words.tolist() == [0, -1, 0] and nodes.tolist() == [1, -1, 1]
     after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, dict(hamming.best2.launches))
     assert after == before
     assert hamming.best2_gated.launches == gated_before
+    assert bow.transform_words_nodes.launches == k4_before
 
 
 def test_launch_counters_do_not_lose_updates():
@@ -160,7 +178,7 @@ def test_kernel_library_key_tracks_sources():
     assert path == build.library_path()
     assert os.path.basename(os.path.dirname(path)) == "kernels"
     assert {os.path.basename(s) for s in build._sources()} >= {
-        "orb_patch_desc.cu", "fast_nms.cu", "hamming_best2.cu"}
+        "orb_patch_desc.cu", "fast_nms.cu", "hamming_best2.cu", "bow_transform.cu"}
 
 
 def test_failed_build_raises(monkeypatch):

@@ -5,13 +5,15 @@ none (a CUDA kernel has no interpret mode). On the card:
 
     python -m pytest tests/test_torch_kernels.py -m cuda
 
-Stated tolerances: K2 (fast_nms) and K3 (hamming_best2, every mode, `fuse`
-included) exact; K1
+Stated tolerances: K2 (fast_nms), K3 (hamming_best2, every mode, `fuse`
+included) and K4 (bow_transform) exact; K1
 (orb_patch_desc) angle within 1e-4 rad and descriptor bit error rate < 1%
 (the kernel sums the moments in another order than the plain version's
 matrix product, so an angle can move in its last bits and, rarely, a
 rotation bin flip).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -216,3 +218,29 @@ def test_all_level_calls_count_one_launch(levels):
     patches.orb_patch_desc_levels(imgs, xs_l, ys_l)
     after = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches)
     assert [a - b for a, b in zip(after, before)] == [1, 1]
+
+
+def test_bow_transform_exact(cuda):
+    """K4 equals its plain version on the edge cases of `kernels/cases.py`
+    (ragged tree with ties at every level, k = 40, N == 0) and on a frame's
+    descriptors against the generic vocabulary; it counts one launch per
+    call with descriptors and none for N == 0."""
+    from orbslam2_tpu_torch.vocab import bow
+
+    for name, voc, desc, valid, level in cases.k4_cases(cuda):
+        before = bow.transform_words_nodes.launches
+        got = bow.transform_words_nodes(voc, desc, valid, level)
+        want = bow.transform_words_nodes_plain(voc, desc, valid, level)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), name
+        assert bow.transform_words_nodes.launches == before + (desc.shape[0] > 0), name
+    voc = bow.load_npz(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
+                                    "vocab_generic.npz"), cuda)
+    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
+    imL, imR = world.render_stereo(world.trajectory(1)[0])
+    f = orb.extract(torch.from_numpy(np.stack([imL, imR])).round().to(cuda), orb.OrbParams())
+    for e in (0, 1):
+        got = bow.transform_words_nodes(voc, f.desc[e], f.valid[e])
+        want = bow.transform_words_nodes_plain(voc, f.desc[e], f.valid[e])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
