@@ -52,22 +52,41 @@ PyTorch built for CUDA. It
      its K3 call held exactly against the plain version, its EPnP RANSAC
      against the plain CPU path on the recorded arguments and hypotheses
      (pose within 1e-3 m and 1e-3 rad, inlier counts within 2);
-  6. localization mode: 8 frames after `activate_localization_mode()`,
+  6. loop closing (its own phase, on a System of its own):
+     `System("assets/vocab_generic.npz", cfg)` with loop closing on (the
+     default), on the card, over the whole 591-frame figure-8 of the
+     bench's loop world (bench.py:171-175), rendered ahead by
+     RENDER_WORKERS spawned processes; launch counts set to 0 just before
+     and read just after; checks 591/591 tracked, 2 loops closed, ATE
+     RMSE < 0.30 m (the bar of tests/test_loop_closing.py; the JAX
+     package's TPU record, 0.264 m, is printed beside it for comparison
+     only) and that K3 `nodes:loop`, `fuse:sim3` and `fuse:loop_fusion`
+     launched; prints each loop's keyframe, candidate and gate counts,
+     the rejected Sim3 attempts by gate, the loop stages' host ms (the
+     shutdown report) and the global BA's size; holds those K3 rows
+     exactly against their plain versions on recorded calls and times
+     them; holds the card's Sim3 RANSAC against the CPU on a recorded
+     call's hypotheses (the same inliers, S12 within 1e-6) and a recorded
+     essential graph against the CPU (camera centres within 1e-4 m), and
+     replays that graph under `torch.profiler` (host ms, device ms,
+     device kernels);
+  7. localization mode: 8 frames after `activate_localization_mode()`,
      all tracked, no keyframe, no new map point, no fused step,
      visual-odometry points matched; then `deactivate_localization_mode()`
      and frames 33-39;
-  7. times each kernel alone by its `torch.profiler` durations (between
-     phases 5 and 6: after the slice, so that no profiler session
+  8. times each kernel alone by its `torch.profiler` durations (between
+     phases 6 and 7: after the slice, so that no profiler session
      precedes the slice's frames, and before the long profile phase);
      profiles 10 more frames (per traced stage: host and device ms and
      device kernels, per frame for the tracker's stages and per call for
      the mapper's), in which mapping has resumed; prints each kernel's
      launches per frame, times, bound and roofline share;
-  8. runs `System(vocabulary, cfg, threaded=True)` over the 40 frames: the
+  9. runs `System(vocabulary, cfg, enable_loop_closing=False,
+     threaded=True)` over the 40 frames: the
      mapper and the keyframe indexing (K4) on the worker thread, >= 39
      frames tracked, ATE RMSE < 0.06 m, every live keyframe indexed,
      `wait_idle` without a worker error;
-  9. prints one JSON line describing the kernels (one row per K3 mode and
+  10. prints one JSON line describing the kernels (one row per K3 mode and
      caller, and K4), then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
@@ -80,6 +99,7 @@ import bisect
 import contextlib
 import functools
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -94,7 +114,8 @@ from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.evaluation.ate import ate_rmse
 from orbslam2_tpu_torch.kernels import build, cases
-from orbslam2_tpu_torch.ops import ba, fast, hamming, orb, patches, pnp
+from orbslam2_tpu_torch.geometry import sim3
+from orbslam2_tpu_torch.ops import ba, fast, hamming, orb, patches, pnp, posegraph, sim3solve
 from orbslam2_tpu_torch.slam.frontend import FrameHost
 from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
 from orbslam2_tpu_torch.slam.system import System
@@ -156,6 +177,12 @@ KERNELS = {
                                               replaces="orbslam2_tpu/slam/relocalization.py:85", path="relocalization"),
     "bow_transform": dict(kernel="bow_transform_kernel", source="orbslam2_tpu_torch/csrc/bow_transform.cu",
                           replaces="orbslam2_tpu/vocab/bow.py:57"),
+    "hamming_best2:nodes:loop": dict(kernel="GateNodes", source=K3_SOURCE,
+                                     replaces="orbslam2_tpu/ops/matchers.py:127", path="loop"),
+    "hamming_best2:fuse:sim3": dict(kernel="GateFuse", source=K3_SOURCE,
+                                    replaces="orbslam2_tpu/slam/loop_closing.py:680", path="loop"),
+    "hamming_best2:fuse:loop_fusion": dict(kernel="GateFuse", source=K3_SOURCE,
+                                           replaces="orbslam2_tpu/slam/loop_closing.py:922", path="loop"),
 }
 # K3's rows: the tracker's modes, then the mapper's (mask mode under its
 # caller epipolar_match); the relocalizer's mask row is recorded on its path
@@ -166,6 +193,18 @@ MAPPER_ROWS = ("fuse", "mask:epipolar")
 # the mapper's stages (its shutdown-report spans), reported per call
 MAPPING_STAGES = ("Keyframe insertion", "Map point culling", "Map point creation", "Map point fusion",
                   "Local BA", "Keyframe culling")
+# the loop phase: the bench's loop world (bench.py:171-175) over its whole
+# figure-8 (two distinct loops), System(VOCAB, cfg) with loop closing on
+LOOP_WORLD = dict(n_points=2000, seed=21, baseline=0.2, vertical_extent=6.0, cylinder_radius=11.0,
+                  near_fraction=0.15, noise_sigma=1.5, exposure_drift=0.05)
+LOOP_ATE_BAR = 0.30  # the bar of tests/test_loop_closing.py
+LOOP_TPU_ATE = 0.264  # BENCH_r05.json: a TPU run of the JAX package, shown for comparison only
+LOOP_STAGES = ("Loop detection", "Sim3 detection", "Loop propagate", "Loop fusion", "Essential graph",
+               "Global BA")
+LOOP_ROWS = ("nodes:loop", "fuse:sim3", "fuse:loop_fusion")
+# processes rendering the figure-8 ahead of the tracker (the sprite
+# renderer takes ~2 s of host time per frame)
+RENDER_WORKERS = 6
 
 
 def launch_counts() -> dict:
@@ -354,13 +393,12 @@ def k3_record(mode, A, B, tensors, oct_mode):
 def k3_bound(A, B, gate):
     """Bound of one K3 call: bytes of the descriptors, the row and column
     vectors and the outputs (or of the mask in mask mode; the gated modes'
-    sort stays in shared memory); K3_OPS_PER_PAIR operations per gated
-    pair."""
+    sort stays in shared memory; nodes mode's sorted ids, which its wrapper
+    makes, are not inputs of the function); K3_OPS_PER_PAIR operations per
+    gated pair."""
     N, M = A.shape[0], B.shape[0]
     if isinstance(gate, hamming.Gate):
-        vec = [gate.row_uv, gate.row_r, gate.row_oct, gate.row_valid, gate.col_uv, gate.col_oct,
-               gate.col_valid, gate.row_umin, gate.row_ur, gate.col_ur, gate.col_isig]
-        nbytes = sum(t.numel() * t.element_size() for t in vec if t is not None)
+        nbytes = sum(t.numel() * t.element_size() for t in gate if isinstance(t, torch.Tensor))
         pairs = int(hamming.gate_mask(gate).sum())
     else:
         nbytes, pairs = N * M, int(gate.sum())
@@ -455,31 +493,38 @@ def check_k4_main_path(system):
 def k3_recorder(sink, keep=lambda row: True):
     """Records every K3 call made inside whose row `keep` accepts, as (row,
     A, B, gate) appended to `sink`, by wrapping `hamming._launch`, the one
-    launch path below the counted wrappers; `hamming.best2` is wrapped to
-    know the caller of a mask-mode call."""
-    launch, best2 = hamming._launch, hamming.best2
-    callers = []
+    launch path below the counted wrappers; `hamming.best2` and
+    `hamming.best2_gated` are wrapped to know a call's caller."""
+    launch, best2, best2_gated = hamming._launch, hamming.best2, hamming.best2_gated
+    rows = []
 
     def best2_tagged(A, B, mask, caller="search_by_bow"):
-        callers.append(caller)
+        rows.append(MASK_ROWS[caller])
         try:
             return best2(A, B, mask, caller)
         finally:
-            callers.pop()
+            rows.pop()
+
+    def best2_gated_tagged(A, B, g, caller=None):
+        rows.append(g.mode if caller is None else f"{g.mode}:{caller}")
+        try:
+            return best2_gated(A, B, g, caller)
+        finally:
+            rows.pop()
 
     best2_tagged.launches = best2.launches
+    best2_gated_tagged.launches = best2_gated.launches
 
     def recording(mode, A, B, tensors, oct_mode="both"):
-        row = MASK_ROWS[callers[-1]] if mode == "mask" else mode
-        if keep(row):
-            sink.append((row, *k3_record(mode, A, B, tensors, oct_mode)))
+        if keep(rows[-1]):
+            sink.append((rows[-1], *k3_record(mode, A, B, tensors, oct_mode)))
         return launch(mode, A, B, tensors, oct_mode)
 
-    hamming._launch, hamming.best2 = recording, best2_tagged
+    hamming._launch, hamming.best2, hamming.best2_gated = recording, best2_tagged, best2_gated_tagged
     try:
         yield sink
     finally:
-        hamming._launch, hamming.best2 = launch, best2
+        hamming._launch, hamming.best2, hamming.best2_gated = launch, best2, best2_gated
 
 
 def run_slice(world, cfg, frames, device, record=()):
@@ -826,6 +871,194 @@ def run_threaded(cfg, frames, poses_gt) -> dict:
     return out
 
 
+_render_state = {}
+
+
+def _render_init(poses):
+    _render_state.update(world=SyntheticWorld(**LOOP_WORLD), poses=poses)
+
+
+def _render(i):
+    """Frame i of the loop world's figure-8 as uint8 images (as the tracker
+    takes them). The renderer's noise and gain follow how many frames it
+    rendered before: set to i, as if it had rendered the sequence in order."""
+    world = _render_state["world"]
+    world._n_rendered = i
+    return tuple(np.clip(np.rint(im), 0, 255).astype(np.uint8)
+                 for im in world.render_stereo(_render_state["poses"][i]))
+
+
+class _Recorder:
+    """Wraps a module function for the loop phase: keeps the arguments and
+    result of the first `keep` calls whose result `want` accepts."""
+
+    def __init__(self, owner, name, keep=1, want=lambda out: True):
+        self.owner, self.name, self.keep, self.want, self.calls = owner, name, keep, want, []
+        self.fn = getattr(owner, name)
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        if len(self.calls) < self.keep and self.want(out):
+            self.calls.append((args, kwargs, out))
+        return out
+
+    def __enter__(self):
+        setattr(self.owner, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.fn)
+
+
+def run_loop():
+    """The loop phase: `System(VOCAB, cfg)` with loop closing on (the
+    default), on the card, over the loop world's whole figure-8, rendered
+    ahead by RENDER_WORKERS processes. Launch counts are set to 0 just
+    before and read just after. Records the K3 calls of the loop rows, the
+    accepted Sim3 attempts' RANSAC calls and the essential-graph problems.
+    Checks every frame tracked, 2 loops closed, ATE RMSE < LOOP_ATE_BAR."""
+    world = SyntheticWorld(**LOOP_WORLD)
+    cfg = slam_config(world)
+    poses_gt, meta = world.trajectory_figure8()
+    n = len(poses_gt)
+    system = System(VOCAB, cfg)
+    closer = system.loop_closer
+    check(closer is not None and system.device.type == "cuda", "System(VOCAB, cfg) has no loop closer on the card")
+    k3_calls, est, ms = [], [], []
+    seen = {row: 0 for row in LOOP_ROWS}
+
+    def keep(row):
+        if row not in seen or seen[row] >= 4:
+            return False
+        seen[row] += 1
+        return True
+
+    ctx = multiprocessing.get_context("spawn")
+    t_start = time.perf_counter()
+    with ctx.Pool(RENDER_WORKERS, initializer=_render_init, initargs=(poses_gt,)) as pool, \
+            _Recorder(sim3solve, "sim3_ransac", keep=2, want=lambda r: int(r.n_inliers) >= 20) as ransac, \
+            _Recorder(posegraph, "optimize_essential_graph", keep=2) as graphs, \
+            k3_recorder(k3_calls, keep):
+        reset_launch_counts()
+        for i, (imL, imR) in enumerate(pool.imap(_render, range(n), chunksize=1)):
+            t0 = time.perf_counter()
+            est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    wall_s = time.perf_counter() - t_start
+    report = system.shutdown()
+    n_tracked = sum(T is not None for T in est)
+    pairs = [(g, e) for g, e in zip(poses_gt, est) if e is not None]
+    rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
+    accuracy = loop_accuracy(system, poses_gt, est, meta["handover"])
+    stages = {name: dict(calls=len(v), mean_ms=statistics.mean(v) / 1e3, max_ms=max(v) / 1e3)
+              for name in LOOP_STAGES if (v := system.timers.samples.get(name))}
+    gates = {}
+    for r in closer.rejections:
+        gates[r["stage"]] = gates.get(r["stage"], 0) + 1
+    print(f"loop phase: the figure-8 of the loop world ({n} frames, handover at {meta['handover']}), "
+          f"{n_tracked}/{n} tracked, {closer.n_loops_closed} loops closed, ATE RMSE {rmse:.4f} m (bar "
+          f"{LOOP_ATE_BAR} m; the TPU record of the JAX package, for comparison only: {LOOP_TPU_ATE} m), "
+          f"{system.map.n_keyframes()} keyframes, {len(system.map.pt_valid)} points; ms/frame p50 "
+          f"{statistics.median(ms[2:]):.2f} max {max(ms):.2f}; {wall_s:.1f} s wall (rendering overlapped)")
+    print(f"  ATE RMSE (m): {accuracy}")
+    for rec in closer.loops:
+        print(f"  loop: keyframe {rec['kf']} with candidate {rec['cand']}: {rec}")
+    print(f"  Sim3 attempts that a gate rejected, by gate: {gates}; accepted: "
+          f"{[(r['kf'], r['cand']) for r in closer.loops]}")
+    for name, st in stages.items():
+        print(f"  {name}: {st['calls']} calls, host {st['mean_ms']:.2f} ms mean, {st['max_ms']:.2f} ms max")
+    print(f"  launches on the loop path: {launches}")
+    print(report)
+    check(n_tracked == n, f"loop phase: {n_tracked}/{n} frames tracked")
+    check(closer.n_loops_closed == 2, f"loop phase: {closer.n_loops_closed} loops closed, not 2")
+    check(rmse < LOOP_ATE_BAR, f"loop phase: ATE RMSE {rmse} >= {LOOP_ATE_BAR} m")
+    for row in LOOP_ROWS:
+        check(launches[f"hamming_best2:{row}"] > 0, f"loop phase: K3 {row} never launched")
+    check(ransac.calls and graphs.calls, "loop phase: no Sim3 RANSAC past its gate or essential graph recorded")
+    out = dict(frames=n, tracked=n_tracked, loops=closer.n_loops_closed, ate_rmse_m=rmse, ate=accuracy,
+               loop_records=closer.loops, rejected_by_gate=gates, stages=stages,
+               ms_per_frame_p50=statistics.median(ms[2:]), ms_per_frame_max=max(ms), wall_s=wall_s,
+               keyframes=system.map.n_keyframes(), points=len(system.map.pt_valid))
+    return out, launches, k3_calls, ransac.calls[0], graphs.calls[0]
+
+
+def loop_accuracy(system, poses_gt, est, handover):
+    """ATE RMSE (m) of the loop phase beyond the online one the bar holds
+    (bench.py's breakdown): the online poses of circle A's frames and of
+    circle B's apart, the offline trajectory (each frame's pose relative
+    to its reference keyframe, resolved against the final, corrected
+    keyframe poses), and the final keyframe poses."""
+    from orbslam2_tpu_torch.slam import trajectory as traj_mod
+
+    m, traj = system.map, system.tracker.trajectory
+
+    def ate(pairs):
+        return ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
+
+    online = [(i, g, e) for i, (g, e) in enumerate(zip(poses_gt, est)) if e is not None]
+    offline = [(g, (e.Tcr.astype(np.float64) @ traj_mod._resolve_reference(m, e.ref_kf)).astype(np.float32))
+               for g, e in zip(poses_gt, traj) if e.Tcw is not None and not e.lost]
+    keyframes = [(poses_gt[m.kf_frame_id[k]], m.kf_pose[k]) for k in sorted(m.kf_valid)]
+    return dict(circle_a=ate([(g, e) for i, g, e in online if i < handover]),
+                circle_b=ate([(g, e) for i, g, e in online if i >= handover]),
+                offline=ate(offline), keyframes=ate(keyframes))
+
+
+def check_sim3_ransac_cpu(recorded):
+    """The card's Sim3 RANSAC against the plain CPU path on a recorded
+    call's arguments and hypotheses: the same inliers, S12 within 1e-6."""
+    args, kwargs, res = recorded
+    to_cpu = lambda a: a.cpu() if isinstance(a, torch.Tensor) else a  # noqa: E731
+    cpu = sim3solve.sim3_ransac(*(to_cpu(a) for a in args), **{k: to_cpu(v) for k, v in kwargs.items()})
+    gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(res.S12, cpu.S12))
+    same = torch.equal(res.inliers.cpu(), cpu.inliers)
+    print(f"Sim3 RANSAC ({kwargs['hypotheses'].shape[0]} hypotheses x {args[0].shape[0]} points): card vs cpu "
+          f"on the recorded hypotheses: inliers {int(res.n_inliers)} vs {int(cpu.n_inliers)} "
+          f"({'the same' if same else 'different'}), max S12 gap {gap:.2e}")
+    check(same and gap < 1e-6, f"Sim3 RANSAC card vs cpu: inliers equal {same}, S12 gap {gap}")
+    return dict(n_inliers=int(res.n_inliers), s12_gap=gap)
+
+
+def check_essential_graph(recorded):
+    """The recorded essential-graph problem: card against CPU (camera
+    centres within 1e-4 m), then replayed under torch.profiler for its
+    host ms, device ms and device kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    args, kwargs, (V, _) = recorded
+    prob = args[0]
+    cpu_prob = posegraph.PoseGraphProblem(*(
+        sim3.Sim3(*(x.cpu() for x in f)) if isinstance(f, sim3.Sim3) else f.cpu() for f in prob))
+    Vc, _ = posegraph.optimize_essential_graph(cpu_prob, *args[1:], **kwargs)
+
+    def centres(S):
+        R, t, s = (x.cpu().double() for x in S)
+        return -torch.einsum("kji,kj->ki", R, t / s[:, None])
+
+    gap = float((centres(V) - centres(Vc)).abs().max())
+    K, E = prob.vertices.s.shape[0], prob.edge_i.shape[0]
+    t0 = time.perf_counter()
+    posegraph.optimize_essential_graph(prob, *args[1:], **kwargs)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        posegraph.optimize_essential_graph(prob, *args[1:], **kwargs)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"essential graph ({K} vertices, {E} edges, float64): card vs cpu max camera-centre gap {gap:.2e} m; "
+          f"replayed: host {warm_ms:.2f} ms unprofiled, under the profiler host {host_ms:.2f} ms, device "
+          f"{dev_ms:.3f} ms, {len(kernels)} device kernels")
+    check(gap < 1e-4, f"essential graph card vs cpu: {gap} m")
+    return dict(vertices=K, edges=E, centre_gap_m=gap, host_ms_warm=warm_ms, host_ms_profiled=host_ms,
+                device_ms=dev_ms, device_kernels=len(kernels))
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -895,11 +1128,16 @@ def main():
     results.update(check_k3_main_path({"kidnapped": [c for c in reloc_calls if c[0] == "mask:relocalization"]},
                                       rows=("mask:relocalization",), path="relocalization"))
     reloc["ransac"] = check_ransac_cpu(ransac)
+    # loop closing: a System of its own on the loop world's figure-8
+    loop, loop_launches, loop_calls, loop_ransac, loop_graph = run_loop()
+    results.update(check_k3_main_path({"loop": loop_calls}, rows=LOOP_ROWS, path="loop"))
+    loop["sim3_ransac"] = check_sim3_ransac_cpu(loop_ransac)
     # kernel profiling after the slice, so that no profiler session runs
     # before the slice's frames, and before the profile phase: profiler
     # sessions after that long one have traced no kernels on the H100
     for name, k in KERNELS.items():
         results[name][1]["device_ms"] = device_ms(results[name][3], k["kernel"])
+    loop["essential_graph"] = check_essential_graph(loop_graph)
     reloc["profiled"] = profile_relocalize(system, reloc_frame)
     localization = run_localization(system, frames, poses_gt)
     processed = lm.n_processed
@@ -907,8 +1145,8 @@ def main():
     check(lm.n_processed > processed, "mapping did not resume after localization mode")
     print(f"mapping resumed: {lm.n_processed - processed} keyframes processed in the profile phase")
 
-    path_launches = {"main": launches, "relocalization": reloc["launches"]}
-    path_frames = {"main": N_FRAMES, "relocalization": N_BLACK + 1 + len(RESUMED)}
+    path_launches = {"main": launches, "relocalization": reloc["launches"], "loop": loop_launches}
+    path_frames = {"main": N_FRAMES, "relocalization": N_BLACK + 1 + len(RESUMED), "loop": loop["frames"]}
     for name, k in KERNELS.items():
         path = k.get("path", "main")
         check(path_launches[path][name] > 0, f"kernel {name} was not launched on the {path} path")
@@ -958,7 +1196,7 @@ def main():
         "ms_per_frame_p50": statistics.median(steady), "ms_per_frame_max": max(steady),
         **mapping, "threaded": threaded, "card": smi,
     }, "relocalization": {k: v for k, v in reloc.items() if k != "launches"},
-        "localization": {k: v for k, v in localization.items() if k != "launches"}}))
+        "localization": {k: v for k, v in localization.items() if k != "launches"}, "loop": loop}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

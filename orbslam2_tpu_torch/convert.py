@@ -8,9 +8,9 @@ Two kinds of things cross the boundary:
     numpy code from the same pattern file, so the port needs no JAX to
     have them; the tests hold them equal to the JAX package's;
   * arrays: a JAX `FrameFeatures`, the argument tuple of the JAX
-    tracker's `_full_step`, a point-major BA problem and a BoW
-    `Vocabulary` (the "weights" of relocalization) become the port's
-    tensors. Anything with `__array__` converts, so this module never
+    tracker's `_full_step`, a point-major BA problem, a BoW `Vocabulary`
+    (the "weights" of relocalization), a `Sim3` and a `PoseGraphProblem`
+    become the port's tensors. Anything with `__array__` converts, so this module never
     imports JAX.
 
 Descriptors: the JAX package keeps 256-bit descriptors as uint32 [N, 8];
@@ -202,3 +202,26 @@ def vocabulary_to_torch(voc, device):
 
     return bow.from_arrays(voc.children_desc, voc.children_idx, voc.node_word, voc.word_weight,
                            int(voc.k), int(voc.depth), device)
+
+
+def sim3_to_torch(S, device, dtype=torch.float64):
+    """A JAX `Sim3` (or any (R, t, s) of numpy-convertible arrays) -> the
+    port's `geometry.sim3.Sim3` of `dtype` tensors on `device`."""
+    from .geometry import sim3
+
+    return sim3.Sim3(*(torch.as_tensor(np.asarray(a), dtype=dtype, device=device) for a in S))
+
+
+def pose_graph_to_torch(prob, device, dtype=torch.float64):
+    """A JAX `PoseGraphProblem` (numpy-convertible leaves) -> the port's
+    `ops.posegraph.PoseGraphProblem` on `device`, its Sim3s in `dtype`."""
+    from .ops import posegraph
+
+    return posegraph.PoseGraphProblem(
+        vertices=sim3_to_torch(prob.vertices, device, dtype),
+        edge_i=torch.as_tensor(np.asarray(prob.edge_i), dtype=torch.int64, device=device),
+        edge_j=torch.as_tensor(np.asarray(prob.edge_j), dtype=torch.int64, device=device),
+        meas=sim3_to_torch(prob.meas, device, dtype),
+        edge_valid=torch.as_tensor(np.asarray(prob.edge_valid), dtype=torch.bool, device=device),
+        fixed=torch.as_tensor(np.asarray(prob.fixed), dtype=torch.bool, device=device),
+    )

@@ -6,10 +6,11 @@
 // second-index pass of orbslam2_tpu/ops/matchers.py::
 // search_by_projection_points (:464-466), and the [N, M] gates of
 // stereo_match (:191-201), search_by_projection_frame (:256-275) and
-// search_by_projection_points (:440-456) and fuse_match (:384-401).
-// Neither the distances nor the gate are ever written.
+// search_by_projection_points (:440-456), fuse_match (:384-401) and
+// search_by_bow_nodes (:127-157). Neither the distances nor the gate are
+// ever written.
 //
-// One kernel template over a gate functor, five modes:
+// One kernel template over a gate functor, six modes:
 //   GateMask    a bool [N, M] mask (search_by_bow, epipolar_match): every
 //               column is scanned;
 //   GateStereo  row band |vR - vL| <= 2 sigma, octave +-1, uL - max_d <= uR <= uL;
@@ -18,7 +19,9 @@
 //               |ur_cur - ur_pt| <= radius where the keypoint has a right u;
 //   GateFuse    window, octave in [pred - 1, pred], reprojection chi2
 //               ((du du + dv dv) + er er) isig <= 7.8 where the keypoint has a
-//               right u, else (du du + dv dv) isig <= 5.99.
+//               right u, else (du du + dv dv) isig <= 5.99;
+//   GateNodes   both features valid and descending to the same vocabulary
+//               node (FeatureVector bucketing), the row's node >= 0.
 // The matchers (ops/matchers.py) compute the per-row vectors with the
 // plain expressions; each pairwise test here is one subtraction,
 // one fabsf and one compare, candidate minus row as in the plain gate, or
@@ -27,7 +30,7 @@
 // __fadd_rn in the plain version's order (hamming.py::_gate_fuse), which
 // nvcc never contracts into an FMA, so it rounds as the plain version does.
 //
-// Pruning: in the gated modes every block first sorts the columns by v
+// Pruning: in the geometric gated modes every block first sorts the columns by v
 // into shared memory, as a counting sort into NB buckets spread over the
 // v range of the valid columns (a min/max reduction, a histogram, a scan
 // and a scatter: a few barriers, where a bitonic sort of 2048 keys in one
@@ -40,6 +43,11 @@
 // of a value is one monotone float expression, the same for columns and
 // band ends, so a column inside the band lies in a scanned bucket. An
 // invalid row, or one whose band is NaN, is answered before any search.
+// In nodes mode the wrapper sorts the column node ids on the device
+// (torch.sort: col_node holds them sorted, col_perm the column of each
+// slot); every block copies the sorted ids into shared memory, and a row
+// binary-searches its node there and scans only that node's slots. The
+// gate (column valid) is then decided per candidate.
 //
 // Semantics reproduced exactly:
 //   * keys are (d << 32) | j with j the original column, so ties go to the
@@ -70,9 +78,12 @@ constexpr int THREADS = 1024;
 constexpr int WARPS = THREADS / 32;  // rows in flight per block
 constexpr int NB = THREADS;          // v buckets of the gated modes' counting sort
 constexpr int MAX_COLUMNS = 16384;   // sorted in shared memory: 4 bytes per column
+// how a row finds its candidates: every column, the columns of its v band,
+// or the columns of its vocabulary node
+enum Prune { PRUNE_NONE = 0, PRUNE_V = 1, PRUNE_NODE = 2 };
 constexpr unsigned kAll = 0xffffffffu;
 
-enum Mode { MODE_MASK = 0, MODE_STEREO = 1, MODE_FRAME = 2, MODE_POINTS = 3, MODE_FUSE = 4 };
+enum Mode { MODE_MASK = 0, MODE_STEREO = 1, MODE_FRAME = 2, MODE_POINTS = 3, MODE_FUSE = 4, MODE_NODES = 5 };
 enum OctMode { OCT_FORWARD = 0, OCT_BACKWARD = 1, OCT_BOTH = 2 };
 
 // Mirrors ops/hamming.py::_Args. Row and column coordinates are [n, 2]
@@ -93,6 +104,9 @@ struct Best2Args {
     const int* col_oct;           // [m]
     const unsigned char* col_valid;
     const float* col_isig;        // [m] fuse: 1 / sigma^2 of the column's octave
+    const int* row_node;          // [n] nodes: the row's vocabulary node, -1 for none
+    const int* col_node;          // [m] nodes: the columns' node ids, sorted ascending
+    const int* col_perm;          // [m] nodes: the column of each sorted slot
     int* out;                     // [4, n]: idx1, d1, idx2, d2
     int n, m, mode, oct_mode;
     int n_blocks;                 // written back by the launcher
@@ -100,11 +114,11 @@ struct Best2Args {
 
 struct RowAt {
     float u, v, r, aux;  // aux: umin (stereo) or ur (points, fuse)
-    int oct;
+    int oct;             // octave or predicted level; the vocabulary node (nodes)
 };
 
 struct GateMask {
-    static constexpr bool kSearch = false;
+    static constexpr int kPrune = PRUNE_NONE;
     __device__ static bool row(const Best2Args&, int, RowAt&) { return true; }
     __device__ static bool pass(const Best2Args& p, int i, const RowAt&, int j) {
         return p.mask[(size_t)i * p.m + j] != 0;
@@ -125,7 +139,7 @@ __device__ __forceinline__ bool window(const Best2Args& p, const RowAt& r, int j
 }
 
 struct GateStereo {
-    static constexpr bool kSearch = true;
+    static constexpr int kPrune = PRUNE_V;
     __device__ static bool row(const Best2Args& p, int i, RowAt& r) {
         if (!load_row(p, i, r)) return false;
         r.aux = p.row_umin[i];
@@ -140,7 +154,7 @@ struct GateStereo {
 };
 
 struct GateFrame {
-    static constexpr bool kSearch = true;
+    static constexpr int kPrune = PRUNE_V;
     __device__ static bool row(const Best2Args& p, int i, RowAt& r) { return load_row(p, i, r); }
     __device__ static bool pass(const Best2Args& p, int, const RowAt& r, int j) {
         if (!p.col_valid[j] || !window(p, r, j)) return false;
@@ -152,7 +166,7 @@ struct GateFrame {
 };
 
 struct GatePoints {
-    static constexpr bool kSearch = true;
+    static constexpr int kPrune = PRUNE_V;
     __device__ static bool row(const Best2Args& p, int i, RowAt& r) {
         if (!load_row(p, i, r)) return false;
         r.aux = p.row_ur[i];
@@ -168,7 +182,7 @@ struct GatePoints {
 };
 
 struct GateFuse {
-    static constexpr bool kSearch = true;
+    static constexpr int kPrune = PRUNE_V;
     __device__ static bool row(const Best2Args& p, int i, RowAt& r) {
         if (!load_row(p, i, r)) return false;
         r.aux = p.row_ur[i];
@@ -188,6 +202,29 @@ struct GateFuse {
         return __fmul_rn(e2, isig) <= 5.99f;
     }
 };
+
+struct GateNodes {
+    static constexpr int kPrune = PRUNE_NODE;
+    __device__ static bool row(const Best2Args& p, int i, RowAt& r) {
+        if (!p.row_valid[i]) return false;
+        r.oct = p.row_node[i];
+        return r.oct >= 0;
+    }
+    // the slot range holds the row's node: what is left of the gate
+    __device__ static bool pass(const Best2Args& p, int, const RowAt&, int j) {
+        return p.col_valid[j] != 0;
+    }
+};
+
+// First slot in [lo, hi) whose sorted node id is >= key (upper: > key).
+__device__ __forceinline__ int lower_slot(const int* ids, int lo, int hi, int key, bool upper) {
+    while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (ids[mid] < key || (upper && ids[mid] == key)) lo = mid + 1;
+        else hi = mid;
+    }
+    return lo;
+}
 
 // Bucket of v: floor((v - v0) * scale) clamped to [0, NB - 1], NaN to 0
 // (only reached when scale is 0 or infinite, where it keeps the order).
@@ -289,12 +326,18 @@ __device__ __forceinline__ int popc8(const int4& a0, const int4& a1, const int4&
 
 template <class Gate>
 __global__ void __launch_bounds__(THREADS) hamming_best2_kernel(const Best2Args p) {
-    extern __shared__ int smem[];  // gated modes: start [NB + 1], cursor [NB], perm [m]
+    // v pruning: start [NB + 1], cursor [NB], perm [m]; node pruning: the
+    // sorted node ids [m]
+    extern __shared__ int smem[];
     int* start = smem;
     int* perm = smem + 2 * NB + 1;
     const int lane = threadIdx.x & 31;
     float v0 = 0.0f, scale = 0.0f;
-    if constexpr (Gate::kSearch) bucket_sort(p, start, smem + NB + 1, perm, v0, scale);
+    if constexpr (Gate::kPrune == PRUNE_V) bucket_sort(p, start, smem + NB + 1, perm, v0, scale);
+    if constexpr (Gate::kPrune == PRUNE_NODE) {
+        for (int c = threadIdx.x; c < p.m; c += THREADS) smem[c] = p.col_node[c];
+        __syncthreads();
+    }
 
     for (int i = blockIdx.x * WARPS + (threadIdx.x >> 5); i < p.n; i += gridDim.x * WARPS) {
         // key = (d << 32) | j: unsigned order is the lexicographic (d, j) order
@@ -302,7 +345,7 @@ __global__ void __launch_bounds__(THREADS) hamming_best2_kernel(const Best2Args 
         RowAt r;
         if (Gate::row(p, i, r)) {  // uniform per warp: one row
             int q0 = 0, q1 = p.m;
-            if (Gate::kSearch) {
+            if constexpr (Gate::kPrune == PRUNE_V) {
                 const float slack = 1.0f + (fabsf(r.v) + r.r) * 0x1p-16f;
                 const float lo = r.v - r.r - slack, hi = r.v + r.r + slack;
                 q1 = 0;
@@ -311,11 +354,16 @@ __global__ void __launch_bounds__(THREADS) hamming_best2_kernel(const Best2Args 
                     q1 = start[bucket_of(hi, v0, scale) + 1];
                 }
             }
+            if constexpr (Gate::kPrune == PRUNE_NODE) {
+                q0 = lower_slot(smem, 0, p.m, r.oct, false);
+                q1 = lower_slot(smem, q0, p.m, r.oct, true);
+            }
             if (q0 < q1) {
                 const int4* a4 = reinterpret_cast<const int4*>(p.a + (size_t)i * 8);
                 const int4 a0 = a4[0], a1 = a4[1];
                 for (int q = q0 + lane; q < q1; q += 32) {
-                    const int j = Gate::kSearch ? perm[q] : q;
+                    const int j = Gate::kPrune == PRUNE_V ? perm[q]
+                                  : Gate::kPrune == PRUNE_NODE ? p.col_perm[q] : q;
                     if (!Gate::pass(p, i, r, j)) continue;
                     const int4* b4 = reinterpret_cast<const int4*>(p.b + (size_t)j * 8);
                     const int d = popc8(a0, a1, b4[0], b4[1]);
@@ -364,7 +412,9 @@ int sm_count() {
 
 template <class Gate>
 cudaError_t launch(const Best2Args& p, int blocks, cudaStream_t s) {
-    const size_t bytes = Gate::kSearch ? (size_t)(2 * NB + 1 + p.m) * sizeof(int) : 0;
+    const size_t bytes = Gate::kPrune == PRUNE_V      ? (size_t)(2 * NB + 1 + p.m) * sizeof(int)
+                         : Gate::kPrune == PRUNE_NODE ? (size_t)p.m * sizeof(int)
+                                                      : 0;
     if (bytes > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             hamming_best2_kernel<Gate>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -383,7 +433,7 @@ cudaError_t launch(const Best2Args& p, int blocks, cudaStream_t s) {
 extern "C" int hamming_best2_launch(void* args, void* stream) {
     Best2Args& p = *static_cast<Best2Args*>(args);
     p.n_blocks = 0;
-    if (p.n < 0 || p.m < 0 || p.mode < MODE_MASK || p.mode > MODE_FUSE ||
+    if (p.n < 0 || p.m < 0 || p.mode < MODE_MASK || p.mode > MODE_NODES ||
         (p.mode != MODE_MASK && p.m > MAX_COLUMNS))
         return (int)cudaErrorInvalidValue;
     if (p.n == 0) return 0;
@@ -396,7 +446,8 @@ extern "C" int hamming_best2_launch(void* args, void* stream) {
         case MODE_STEREO: e = launch<GateStereo>(p, blocks, s); break;
         case MODE_FRAME: e = launch<GateFrame>(p, blocks, s); break;
         case MODE_POINTS: e = launch<GatePoints>(p, blocks, s); break;
-        default: e = launch<GateFuse>(p, blocks, s); break;
+        case MODE_FUSE: e = launch<GateFuse>(p, blocks, s); break;
+        default: e = launch<GateNodes>(p, blocks, s); break;
     }
     if (e == cudaSuccess) p.n_blocks = blocks;
     return (int)e;

@@ -17,7 +17,10 @@ by `hamming.best2_plain` / `best2_gated_plain`:
     more than 48 KB of shared memory for it);
   * invalid rows holding inf or NaN coordinates and radii, and valid rows
     at inf or NaN;
-  * tie-heavy descriptors (words from [0, 1, 3, -1, -2^31]).
+  * tie-heavy descriptors (words from [0, 1, 3, -1, -2^31]);
+  * `nodes` mode (`nodes_case`): rows whose node no column holds, rows and
+    columns at node -1, every column in one node, invalid rows and
+    columns, tie-heavy descriptors, N == 1, M == 0, and 12000 columns.
 
 `chip_smoke.py` and `tests/test_torch_kernels.py` hold the kernel to its
 plain version on them on the card; `tests/test_torch_matchers.py` holds
@@ -164,6 +167,47 @@ def fuse_chi2_boundary(rng, n):
     return A, B, g
 
 
+def nodes_case(rng, n, m, n_nodes, ties=False):
+    """Rows and columns of `nodes` mode: node ids drawn from n_nodes values
+    spread over a vocabulary-sized range, -1 (no node) for a tenth of
+    each, a tenth of the rows at nodes no column holds, 90% valid."""
+    ids = np.sort(rng.choice(88950, n_nodes, replace=False)).astype(np.int32)
+    col_node = ids[rng.integers(0, n_nodes, m)]
+    row_node = ids[rng.integers(0, n_nodes, n)]
+    row_node[rng.uniform(size=n) < 0.1] = 88950 + rng.integers(0, 10)  # absent from the columns
+    row_node[rng.uniform(size=n) < 0.1] = -1
+    col_node[rng.uniform(size=m) < 0.1] = -1
+    g = dict(mode="nodes", row_valid=rng.uniform(size=n) < 0.9, col_valid=rng.uniform(size=m) < 0.9,
+             row_node=row_node.astype(np.int32), col_node=col_node.astype(np.int32))
+    return _descs(rng, n, ties), _descs(rng, m, ties), g
+
+
+def _nodes_cases(rng):
+    out = [("nodes 1200x1200 over 300 nodes", *nodes_case(rng, 1200, 1200, 300)),
+           ("nodes ties", *nodes_case(rng, 300, 400, 20, ties=True))]
+    A, B, g = nodes_case(rng, 300, 400, 1, ties=True)
+    g["col_node"][:] = g["row_node"][g["row_node"] >= 0][0]
+    out.append(("nodes all columns in one node", A, B, g))
+    A, B, g = nodes_case(rng, 200, 300, 50)
+    g["col_node"][:] = -1
+    out.append(("nodes every column at node -1", A, B, g))
+    A, B, g = nodes_case(rng, 200, 300, 50)
+    g["row_node"][:] = -1
+    g["col_node"][:] = -1
+    g["row_valid"][:] = g["col_valid"][:] = True
+    out.append(("nodes rows and columns at node -1", A, B, g))
+    A, B, g = nodes_case(rng, 100, 300, 50)
+    g["col_valid"][:] = False
+    out.append(("nodes all columns invalid", A, B, g))
+    A, B, g = nodes_case(rng, 1, 300, 2)
+    g["row_valid"][:] = True
+    g["row_node"][:] = g["col_node"][g["col_node"] >= 0][0]
+    out.append(("nodes N == 1", A, B, g))
+    out.append(("nodes M == 0", *nodes_case(rng, 20, 0, 5)))
+    out.append(("nodes M == 12000", *nodes_case(rng, 600, 12000, 2000)))
+    return out
+
+
 def k3_cases(device, seed: int = 0):
     """[(name, A, B, gate)]: torch tensors on `device`; `gate` is a
     `hamming.Gate` for the gated modes or a bool [N, M] mask for mask mode."""
@@ -193,6 +237,7 @@ def k3_cases(device, seed: int = 0):
     raw.append(("stereo M == 3000", *grid_case(rng, "stereo", 600, 3000, extent=120.0)))
     raw.append(("frame M == 12000", *grid_case(rng, "frame", 300, 12000, extent=480.0)))
     raw.append(("fuse chi2 boundary", *fuse_chi2_boundary(rng, 400)))
+    raw += _nodes_cases(rng)
     out = []
     for name, A, B, g in raw:
         t = {k: (torch.from_numpy(np.ascontiguousarray(v)).to(device) if isinstance(v, np.ndarray) else v)

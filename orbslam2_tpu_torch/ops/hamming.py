@@ -7,13 +7,13 @@ popcount, so the plain version counts bits with a SWAR sum on int64 (no
 arithmetic shift of a negative int32 is ever taken).
 
 K3 (`csrc/hamming_best2.cu`) is the matchers' masked best and second-best
-candidate per row, never materialising the [N, M] distances. It has five
+candidate per row, never materialising the [N, M] distances. It has six
 modes: `best2` takes a bool [N, M] mask (search_by_bow, epipolar_match);
 `best2_gated` takes a `Gate`, the geometric gate of one of the three
-tracking matchers or of fuse_match as per-row and per-column vectors, and
-on a CUDA tensor evaluates it in the kernel, so no [N, M] gate is built
-either. Its plain version builds the gate with `gate_mask` and takes
-`best2_plain`.
+tracking matchers or of fuse_match, or the FeatureVector-node gate of
+search_by_bow_nodes, as per-row and per-column vectors, and on a CUDA
+tensor evaluates it in the kernel, so no [N, M] gate is built either. Its
+plain version builds the gate with `gate_mask` and takes `best2_plain`.
 
 The launch counters are counted under a lock: the mapping worker thread
 launches K3 beside the tracker.
@@ -107,25 +107,29 @@ def best2_plain(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor):
 
 
 class Gate(NamedTuple):
-    """The geometric gate of one matcher call as per-row and per-column
-    vectors. Rows are the queries (left keypoints, projected points),
-    columns the candidates (right or current keypoints). The matchers
-    compute `row_r` and `row_umin` with their plain expressions; the pair
-    test is `gate_mask`'s, in the kernel as in the plain version."""
+    """The gate of one matcher call as per-row and per-column vectors. Rows
+    are the queries (left keypoints, projected points, a keyframe's
+    features), columns the candidates (right or current keypoints, the
+    other keyframe's features). The matchers compute `row_r` and
+    `row_umin` with their plain expressions; the pair test is
+    `gate_mask`'s, in the kernel as in the plain version. The `nodes` mode
+    reads only the validity flags and the node ids."""
 
-    mode: str  # "stereo", "frame", "points" or "fuse"
-    row_uv: torch.Tensor  # [N, 2] float32
-    row_r: torch.Tensor  # [N] float32: band (stereo) or window (frame, points) half-size
-    row_oct: torch.Tensor  # [N] int32: left octave, source octave, predicted level
-    row_valid: torch.Tensor  # [N] bool
-    col_uv: torch.Tensor  # [M, 2] float32
-    col_oct: torch.Tensor  # [M] int32
-    col_valid: torch.Tensor  # [M] bool
+    mode: str  # "stereo", "frame", "points", "fuse" or "nodes"
+    row_uv: Optional[torch.Tensor] = None  # [N, 2] float32
+    row_r: Optional[torch.Tensor] = None  # [N] float32: band (stereo) or window half-size
+    row_oct: Optional[torch.Tensor] = None  # [N] int32: left octave, source octave, predicted level
+    row_valid: Optional[torch.Tensor] = None  # [N] bool
+    col_uv: Optional[torch.Tensor] = None  # [M, 2] float32
+    col_oct: Optional[torch.Tensor] = None  # [M] int32
+    col_valid: Optional[torch.Tensor] = None  # [M] bool
     row_umin: Optional[torch.Tensor] = None  # stereo: uL - max_d
     row_ur: Optional[torch.Tensor] = None  # points, fuse: predicted right u
     col_ur: Optional[torch.Tensor] = None  # points, fuse: right u, < 0 where none
     oct_mode: str = "both"  # frame: "forward", "backward" or "both"
     col_isig: Optional[torch.Tensor] = None  # fuse: 1 / sigma^2 of the column's octave
+    row_node: Optional[torch.Tensor] = None  # nodes: [N] int32 FeatureVector node, -1 for none
+    col_node: Optional[torch.Tensor] = None  # nodes: [M] int32
 
 
 def _window(g: Gate) -> torch.Tensor:
@@ -183,7 +187,14 @@ def _gate_fuse(g: Gate) -> torch.Tensor:
     return _window(g) & oct_gate & chi_ok & g.row_valid[:, None] & g.col_valid[None, :]
 
 
-_GATES = {"stereo": _gate_stereo, "frame": _gate_frame, "points": _gate_points, "fuse": _gate_fuse}
+def _gate_nodes(g: Gate) -> torch.Tensor:
+    """search_by_bow_nodes: both valid, the same vocabulary node, >= 0."""
+    same = (g.row_node[:, None] == g.col_node[None, :]) & (g.row_node >= 0)[:, None]
+    return g.row_valid[:, None] & g.col_valid[None, :] & same
+
+
+_GATES = {"stereo": _gate_stereo, "frame": _gate_frame, "points": _gate_points, "fuse": _gate_fuse,
+          "nodes": _gate_nodes}
 
 
 def gate_mask(g: Gate) -> torch.Tensor:
@@ -238,11 +249,11 @@ def candidate_buckets(g: Gate):
 # K3 wrappers
 # ---------------------------------------------------------------------------
 
-_MODES = {"mask": 0, "stereo": 1, "frame": 2, "points": 3, "fuse": 4}
+_MODES = {"mask": 0, "stereo": 1, "frame": 2, "points": 3, "fuse": 4, "nodes": 5}
 _OCT_MODES = {"forward": 0, "backward": 1, "both": 2}
 _PTRS = (
     "a", "b", "mask", "row_uv", "row_r", "row_umin", "row_ur", "row_oct", "row_valid", "col_uv",
-    "col_ur", "col_oct", "col_valid", "col_isig", "out",
+    "col_ur", "col_oct", "col_valid", "col_isig", "row_node", "col_node", "col_perm", "out",
 )
 #: the gated modes sort their columns in shared memory, 4 bytes per column
 MAX_COLUMNS = 16384
@@ -278,6 +289,12 @@ def _launch(mode: str, A, B, tensors: dict, oct_mode: str = "both"):
     A, B = _aligned(A), _aligned(B)
     args = _Args(a=A.data_ptr(), b=B.data_ptr(), out=out.data_ptr(), n=N, m=M, mode=_MODES[mode],
                  oct_mode=_OCT_MODES[oct_mode])
+    if mode == "nodes":
+        # the kernel binary-searches the column node ids: sorted on the
+        # device, with the column of each sorted slot
+        nodes, perm = torch.sort(tensors["col_node"])
+        perm = perm.to(torch.int32)
+        tensors = dict(tensors, col_node=nodes, col_perm=perm)
     for name, t in tensors.items():
         setattr(args, name, t.data_ptr())
     build.launch("hamming_best2_launch", args)
@@ -289,7 +306,7 @@ _count_lock = threading.Lock()
 
 def _count(counts: dict, key: str, launched: bool):
     with _count_lock:
-        counts[key] += launched
+        counts[key] = counts.get(key, 0) + launched
 
 
 def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "search_by_bow"):
@@ -314,21 +331,25 @@ def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "s
 best2.launches = {"search_by_bow": 0, "epipolar_match": 0, "relocalization": 0}
 
 
-def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
+def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate, caller: Optional[str] = None):
     """K3 in a gated mode (`g.mode`): rows A [N, 8] against columns B
     [M, 8] under the gate `g`. CPU tensors take `best2_gated_plain`; CUDA
     tensors take one launch of `hamming_best2_launch` (which sorts the
-    columns by v itself), with no [N, M] tensor."""
+    columns by v, or by node, itself), with no [N, M] tensor. The launch
+    is counted under the mode, or under "mode:caller" when `caller` is
+    given (the loop closer's `fuse` calls)."""
     if A.device.type == "cpu":
         return best2_gated_plain(A, B, g)
     _device(A, "best2_gated")
     out, launched = _launch_gated(A, B, g)
-    _count(best2_gated.launches, g.mode, launched)
+    _count(best2_gated.launches, g.mode if caller is None else f"{g.mode}:{caller}", launched)
     return out
 
 
-#: launches per gated mode
-best2_gated.launches = {"stereo": 0, "frame": 0, "points": 0, "fuse": 0}
+#: launches per gated mode, or per mode and caller: the loop closer's
+#: `nodes` calls and its `fuse` calls (Sim3 search, loop fusion)
+best2_gated.launches = {"stereo": 0, "frame": 0, "points": 0, "fuse": 0, "nodes:loop": 0,
+                        "fuse:sim3": 0, "fuse:loop_fusion": 0}
 
 
 def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
@@ -337,12 +358,13 @@ def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
     dev, N, M = A.device, A.shape[0], B.shape[0]
     if M > MAX_COLUMNS:
         raise ValueError(f"best2_gated takes at most {MAX_COLUMNS} columns, got {M}")
-    want = {
-        "row_uv": (torch.float32, (N, 2)), "row_r": (torch.float32, (N,)),
-        "row_oct": (torch.int32, (N,)), "row_valid": (torch.bool, (N,)),
-        "col_uv": (torch.float32, (M, 2)), "col_oct": (torch.int32, (M,)),
-        "col_valid": (torch.bool, (M,)),
-    }
+    want = {"row_valid": (torch.bool, (N,)), "col_valid": (torch.bool, (M,))}
+    if g.mode == "nodes":
+        want.update(row_node=(torch.int32, (N,)), col_node=(torch.int32, (M,)))
+    else:
+        want.update(row_uv=(torch.float32, (N, 2)), row_r=(torch.float32, (N,)),
+                    row_oct=(torch.int32, (N,)), col_uv=(torch.float32, (M, 2)),
+                    col_oct=(torch.int32, (M,)))
     if g.mode == "stereo":
         want["row_umin"] = (torch.float32, (N,))
     elif g.mode in ("points", "fuse"):
@@ -350,7 +372,7 @@ def _launch_gated(A: torch.Tensor, B: torch.Tensor, g: Gate):
         want["col_ur"] = (torch.float32, (M,))
         if g.mode == "fuse":
             want["col_isig"] = (torch.float32, (M,))
-    elif g.mode != "frame":
+    elif g.mode not in ("frame", "nodes"):
         raise ValueError(f"best2_gated: unknown mode {g.mode!r}")
     tensors = {}
     for name, (dtype, shape) in want.items():

@@ -2,9 +2,10 @@
 matching, rotation-consistency filtering.
 
 Port of the parts of orbslam2_tpu/ops/matchers.py that the stereo
-tracking and local mapping paths call (reference src/ORBmatcher.cpp).
-Each matcher is a gated all-pairs problem: it computes the per-row parts
-of its geometric gate (band or window half-size) with the plain
+tracking, local mapping and loop closing paths call (reference
+src/ORBmatcher.cpp). Each matcher is a gated all-pairs problem: it
+computes the per-row parts of its geometric gate (band or window
+half-size; the vocabulary node in `search_by_bow_nodes`) with the plain
 expressions, and kernel K3 (`hamming.best2_gated`) takes the gated Hamming
 best and second best per row, evaluating the pairwise gate itself on a
 CUDA tensor; on a CPU tensor the gate is the plain [N, M] mask of
@@ -20,7 +21,7 @@ best distance, then the lowest source index, wins a collision.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -74,6 +75,34 @@ def search_by_bow(desc_a, valid_a, angle_a, desc_b, valid_b, angle_b, ratio: flo
     ok = (best < hamming.TH_LOW) & (best < ratio * second)
     keep = rotation_consistency_mask(angle_a, angle_b[idx.long()], ok)
     return idx, best, keep
+
+
+def search_by_bow_nodes(desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b, node_b, ratio: float,
+                        caller: str = "loop"):
+    """SearchByBoW with the reference's FeatureVector-node bucketing
+    (ORBmatcher.cpp:354-487): candidate pairs are features whose
+    descriptors descend to the same vocabulary node (node_a, node_b [A],
+    [B] int32, -1 for none), and the ratio test runs within that bucket.
+    K3's `nodes` mode evaluates the node gate in the kernel, so no [A, B]
+    mask is built; then the ratio test, TH_LOW and rotation consistency as
+    in `search_by_bow`; K3's launch counted under `caller` (the loop
+    closer). Returns (idx [A] into B, best [A], keep [A])."""
+    gate = hamming.Gate("nodes", row_valid=valid_a, col_valid=valid_b, row_node=node_a, col_node=node_b)
+    idx, best, _, second = hamming.best2_gated(desc_a, desc_b, gate, caller)
+    ok = (best < hamming.TH_LOW) & (best < ratio * second)
+    keep = rotation_consistency_mask(angle_a, angle_b[idx.long()], ok)
+    return idx, best, keep
+
+
+def bow_node_matches(desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b, node_b, ratio: float):
+    """`search_by_bow_nodes` with B-side collisions resolved (best distance,
+    then the lowest row, wins): (idx [A] into B, win [A] bool), the JAX
+    loop closer's per-candidate matching (`_bow_batch`)."""
+    idx, best, keep = search_by_bow_nodes(desc_a, valid_a, angle_a, node_a, desc_b, valid_b, angle_b,
+                                          node_b, ratio)
+    src, _ = _resolve_collisions(idx, torch.where(keep, best, hamming.MAX_DIST), desc_b.shape[0])
+    rows = torch.arange(desc_a.shape[0], dtype=torch.int32, device=idx.device)
+    return idx, keep & (src[idx.long()] == rows)
 
 
 class StereoMatches(NamedTuple):
@@ -201,15 +230,17 @@ def epipolar_match(uv1, desc1, free1, angle1, stereo1, uv2, oct2, desc2, free2, 
 
 
 def fuse_match(uv_kp, oct_kp, ur_kp, desc_kp, valid_kp, uv_pt, ur_pt, level_pt, desc_pt, valid_pt,
-               scale_factors: torch.Tensor, inv_level_sigma2: torch.Tensor, th: float = 3.0):
+               scale_factors: torch.Tensor, inv_level_sigma2: torch.Tensor, th: float = 3.0,
+               caller: Optional[str] = None):
     """Map-point fusion into a keyframe (reference ORBmatcher::Fuse,
     ORBmatcher.cpp:671-821): for each projected point the best keypoint
     within radius th sigma(predicted level), octave in [pred-1, pred],
     reprojection chi2 <= 5.99 (mono keypoint) / 7.8 (stereo keypoint),
-    Hamming <= TH_LOW, through K3's `fuse` mode. Returns (keypoint index
-    per point [-1 none], best distance)."""
+    Hamming <= TH_LOW, through K3's `fuse` mode (its launch counted under
+    `caller` when given: the loop closer's `sim3` and `loop_fusion`).
+    Returns (keypoint index per point [-1 none], best distance)."""
     gate = hamming.Gate("fuse", uv_pt, th * scale_factors[level_pt.long()], level_pt, valid_pt,
                         uv_kp, oct_kp, valid_kp, row_ur=ur_pt, col_ur=ur_kp,
                         col_isig=inv_level_sigma2[oct_kp.long()])
-    best_idx, best, _, _ = hamming.best2_gated(desc_pt, desc_kp, gate)
+    best_idx, best, _, _ = hamming.best2_gated(desc_pt, desc_kp, gate, caller)
     return torch.where(best <= hamming.TH_LOW, best_idx, -1), best

@@ -263,16 +263,17 @@ class PnPResult(NamedTuple):
     n_inliers: torch.Tensor  # [...] int64
 
 
-def sample_hypotheses(valid: torch.Tensor, n_hyp: int, generator: torch.Generator) -> torch.Tensor:
-    """[..., n_hyp, 4] int64 point indices per hypothesis: Gumbel-top-4 over
+def sample_hypotheses(valid: torch.Tensor, n_hyp: int, generator: torch.Generator, k: int = 4) -> torch.Tensor:
+    """[..., n_hyp, k] int64 point indices per hypothesis: Gumbel-top-k over
     the valid points of valid [..., N] (the JAX package's draw, pnp.py:
-    208-212, from `generator` on valid's device). With fewer than 4 valid
-    points the rest come from the invalid ones, which weigh 0."""
+    208-212 and sim3solve.py:108-111, from `generator` on valid's device).
+    With fewer than k valid points the rest come from the invalid ones,
+    which weigh 0."""
     shape = valid.shape[:-1] + (n_hyp, valid.shape[-1])
     u = torch.rand(shape, generator=generator, dtype=torch.float32, device=valid.device)
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     g = -torch.log(-torch.log(u)) + torch.where(valid, 0.0, -1e9)[..., None, :]
-    return torch.topk(g, 4, dim=-1).indices
+    return torch.topk(g, k, dim=-1).indices
 
 
 def _inliers(R, t, pw, obs, valid, max_err2):

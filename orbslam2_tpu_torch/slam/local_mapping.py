@@ -89,6 +89,15 @@ class LocalMapper:
         self._stopped = True
         self._abort_ba = True
 
+    def wait_stopped(self, timeout: float = 60.0):
+        """Wait until no keyframe is mid-processing (reference CorrectLoop's
+        isStopped() wait, LoopClosing.cpp:412-415): the mapping worker
+        parks after its keyframe in flight. Inline, the caller is the
+        mapper's own keyframe pass (its `on_processed`), which has finished
+        every mapping stage, so there is nothing to wait for."""
+        if self.worker is not None:
+            self.worker.wait_parked(timeout)
+
     def release(self):
         self._stopped = False
 

@@ -18,12 +18,14 @@ Conventions: keyframe ids and point ids are stable ints; `-1` means none.
 Deleted rows are masked via `kf_valid` / `pt_valid` (tombstones), matching
 the reference's SetBadFlag protocol (KeyFrame.cpp:443-536).
 
-This file is a copy of orbslam2_tpu/slam/map.py. The only difference is
-what `from .frontend import FrameHost` resolves to: the JAX package's
+This file is a copy of orbslam2_tpu/slam/map.py with two differences.
+What `from .frontend import FrameHost` resolves to: the JAX package's
 `slam/frontend.py` imports JAX, so its map module cannot be imported where
 JAX is absent; here the import names the port's `FrameHost`, which keeps
-the same host fields (descriptors as uint32 words). Merging the two copies
-by moving the import under `TYPE_CHECKING` is a roadmap item.
+the same host fields (descriptors as uint32 words). And `clear` keeps the
+keyframe database's erase hook, which the JAX package's drops. Merging
+the two copies by moving the import under `TYPE_CHECKING` is a roadmap
+item.
 """
 
 from __future__ import annotations
@@ -793,6 +795,9 @@ class SlamMap:
         )
 
     def clear(self):
-        lock = self.lock  # keep the shared lock identity across resets
+        # keep the shared lock and the database's erase hook across resets
+        # (the JAX package's clear drops the hook: a reset then leaves
+        # culled keyframes in the database)
+        lock, hook = self.lock, self.on_keyframe_removed
         self.__init__(self.n_kp, self.n_levels, self.scale_factor)
-        self.lock = lock
+        self.lock, self.on_keyframe_removed = lock, hook

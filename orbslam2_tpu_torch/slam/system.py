@@ -1,9 +1,9 @@
 """System facade: the public API of the SLAM engine (stereo tracking,
-local mapping, relocalization and localization mode).
+local mapping, relocalization and localization mode, loop closing).
 
 Port of orbslam2_tpu/slam/system.py (reference include/System.hpp:55-117,
 src/System.cpp): construction wires the stages (vocabulary and keyframe
-database, tracking, local mapping), `track_stereo` is the per-frame
+database, tracking, local mapping, loop closing), `track_stereo` is the per-frame
 entry, plus localization-mode switching, reset, wait_idle, shutdown with
 the stage-timing report, and the four trajectory savers.
 
@@ -11,13 +11,16 @@ The local mapper processes each keyframe inline in `track_stereo`, one
 queued keyframe per frame with `deferred_mapping=True`, or on a worker
 thread with `threaded=True` (reference System.cpp:63-65). With a
 vocabulary, a `Relocalizer` indexes every keyframe the mapper finishes
-(on the worker thread when threaded) and brings a lost tracker back;
-without one a lost tracker stays lost. Loop closing is not ported: a
-vocabulary with `enable_loop_closing=True` raises, as do the other
-unported parts (a viewer, a device mesh, the monocular sensor), each
-naming its ROADMAP item.
+and brings a lost tracker back; without one a lost tracker stays lost.
+With a vocabulary and `enable_loop_closing=True` (the default), a
+`LoopCloser` takes each keyframe the mapper finishes, indexes it, looks
+for a loop, corrects it and runs the global BA, all synchronously, on the
+thread that mapped the keyframe. Loop closing on its own thread (with
+`threaded=True`) is not ported yet and raises, as do the other unported
+parts (a viewer, a device mesh, the monocular sensor), each naming its
+ROADMAP item.
 
-    system = System("assets/vocab_generic.npz", cfg, enable_loop_closing=False)
+    system = System("assets/vocab_generic.npz", cfg)
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from ..vocab import bow as bow_mod
 from . import trajectory as traj_mod
 from .frontend import Frontend
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .map import SlamMap
 from .pipeline import MappingWorker
 from .timing import StageTimers
@@ -61,8 +65,9 @@ class System:
         *,
         device="cuda",
     ):
-        if vocabulary is not None and enable_loop_closing:
-            raise _not_ported("loop closing", "loop closing")
+        if vocabulary is not None and enable_loop_closing and threaded:
+            raise _not_ported("loop closing on its own thread (threaded=True)",
+                              "loop closing, item 1(b): LoopWorker and global BA on its own thread")
         if sensor == Sensor.MONOCULAR:
             raise _not_ported("the monocular sensor", "monocular/MLPnP/undistort")
         if use_viewer:
@@ -88,17 +93,28 @@ class System:
 
         self.vocabulary = self._load_vocabulary(vocabulary)
         self.relocalizer = None
+        self.loop_closer = None
         if self.vocabulary is not None:
             reloc = Relocalizer(self.config, self.frontend, self.map, self.vocabulary)
             self.relocalizer = reloc
             self.tracker.relocalizer = reloc
             self.map.on_keyframe_removed = reloc.remove_keyframe
-            # under the map lock: with threaded=True this runs on the
-            # mapping worker beside the tracker
-            self.local_mapper.on_processed = lambda kf: reloc.add_keyframe(kf, lock=self.map.lock)
+            if enable_loop_closing:
+                self.loop_closer = LoopCloser(self.config, self.frontend, self.map, reloc,
+                                              local_mapper=self.local_mapper)
+                self.local_mapper.on_processed = self.loop_closer.insert_keyframe
+                self.loop_closer.on_pose_jump = self.tracker.apply_pose_jump
+            else:
+                # under the map lock: with threaded=True this runs on the
+                # mapping worker beside the tracker
+                self.local_mapper.on_processed = lambda kf: reloc.add_keyframe(kf, lock=self.map.lock)
+        # the tracker's early-loss reset is the full reset
+        self.tracker.on_reset = self.reset
         self.timers = StageTimers()
         self.tracker.timers = self.timers
         self.local_mapper.timers = self.timers
+        if self.loop_closer is not None:
+            self.loop_closer.timers = self.timers
         # threaded: the mapper drains its queue on a worker thread, and the
         # tracker only ever waits on the map lock, never on a BA solve
         self.worker = MappingWorker(self.local_mapper) if threaded else None
@@ -132,12 +148,15 @@ class System:
     def reset(self):
         """Full reset (reference Tracking::Reset, Tracking.cpp:1348-1388):
         the map, the tracker, the mapper's queue and recent points, the
-        keyframe database."""
+        keyframe database, the loop state. The tracker's early-loss reset
+        comes here too."""
         self.tracker.reset()
         self.local_mapper.recent_points = []
         self.local_mapper._queue.clear()
         if self.relocalizer is not None:
             self.relocalizer.database.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
 
     def wait_idle(self, timeout: float = 120.0):
         """Block until the mapping worker has drained its queue (no-op

@@ -10,8 +10,9 @@ mapper), relocalization of a lost frame (through the `relocalizer` that
 `System` wires when it is given a vocabulary; None otherwise, and a lost
 tracker then stays lost), localization mode (`only_tracking`: no
 keyframes, visual-odometry points from the last frame's close stereo
-features, never fused) and trajectory bookkeeping. Host code is control
-flow and map admin in numpy; matching and optimization run on the
+features, never fused), the motion model's re-anchoring after a loop
+correction (`apply_pose_jump`) and trajectory bookkeeping. Host code is
+control flow and map admin in numpy; matching and optimization run on the
 tracker's device.
 
 Not ported yet: pipelined tracking (not to be ported) and the monocular
@@ -74,6 +75,10 @@ class Tracker:
         self.map = slam_map
         self.local_mapper = None  # LocalMapper, wired by System
         self.relocalizer = None  # Relocalizer, wired by System with a vocabulary
+        #: the early-loss reset: System.reset, wired by System, which also
+        #: clears the database, the mapper's queue and the loop state;
+        #: None resets the tracker and the map alone
+        self.on_reset = None
         #: localization mode: track against the map without mapping
         self.only_tracking = False
         self.cam = frontend.camera
@@ -355,7 +360,7 @@ class Tracker:
             self.velocity = None
             if self.map.n_keyframes() <= 5:
                 # early loss: reset (reference Tracking.cpp:485-492)
-                self.reset()
+                (self.on_reset or self.reset)()
                 return
 
         self._record_trajectory(frame)
@@ -874,6 +879,20 @@ class Tracker:
         self.last_kf_id = frame.frame_id
 
     # ------------------------------------------------------------------
+
+    def apply_pose_jump(self, T_old: np.ndarray, T_new: np.ndarray):
+        """Re-anchor the motion model after a loop correction, essential
+        graph or global BA write-back moved the current region's poses
+        (called under the map lock; JAX slam/tracking.py:707). The reference
+        has no equivalent: its tracker risks one failed frame after
+        CorrectLoop rewrites mpCurrentKeyFrame's neighbourhood
+        (LoopClosing.cpp:429-501); here the last frame rides the same
+        correction, so the motion model stays continuous across the jump."""
+        lf = self.last_frame
+        if lf is None or lf.Tcw is None:
+            return
+        D = np.linalg.inv(T_old.astype(np.float64)) @ T_new.astype(np.float64)
+        lf.Tcw = (lf.Tcw.astype(np.float64) @ D).astype(np.float32)
 
     def _relocalize(self, frame: FrameHost) -> bool:
         if self.relocalizer is None:

@@ -35,6 +35,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "orbslam2_tpu_torch.convert",
     "orbslam2_tpu_torch.vocab.bow, orbslam2_tpu_torch.vocab.database, orbslam2_tpu_torch.ops.pnp, "
     "orbslam2_tpu_torch.slam.relocalization",
+    "orbslam2_tpu_torch.geometry.sim3, orbslam2_tpu_torch.ops.sim3solve, orbslam2_tpu_torch.ops.posegraph, "
+    "orbslam2_tpu_torch.slam.loop_closing",
 ])
 def test_imports_without_jax(module):
     code = (
@@ -110,6 +112,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         hamming.best2_gated(d, d, _gate("meta"))
     with pytest.raises(ValueError):
+        hamming.best2_gated(d, d, _nodes_gate("meta"), "loop")
+    with pytest.raises(ValueError):
         bow.transform_words_nodes(_vocabulary("meta"), d, torch.ones(3, dtype=torch.bool, device="meta"))
 
 
@@ -128,6 +132,12 @@ def _gate(device):
                         z(3, 2), z(3, dtype=torch.int32), z(3, dtype=torch.bool), row_ur=z(3), col_ur=z(3))
 
 
+def _nodes_gate(device):
+    flags = torch.ones(3, dtype=torch.bool, device=device)
+    nodes = torch.zeros(3, dtype=torch.int32, device=device)
+    return hamming.Gate("nodes", row_valid=flags, col_valid=flags, row_node=nodes, col_node=nodes)
+
+
 def test_cpu_tensors_take_the_plain_version():
     before = (fast.fast_nms_levels.launches, patches.orb_patch_desc_levels.launches, dict(hamming.best2.launches))
     gated_before = dict(hamming.best2_gated.launches)
@@ -140,6 +150,9 @@ def test_cpu_tensors_take_the_plain_version():
     hamming.best2(d, d, torch.ones((3, 3), dtype=torch.bool), caller="epipolar_match")
     hamming.best2_gated(d, d, _gate("cpu"))
     hamming.best2_gated(d, d, _gate("cpu")._replace(mode="fuse", col_isig=torch.ones(3)))
+    hamming.best2_gated(d, d, _gate("cpu")._replace(mode="fuse", col_isig=torch.ones(3)), "loop_fusion")
+    assert [t.tolist() for t in hamming.best2_gated(d, d, _nodes_gate("cpu"), "loop")] == [[0] * 3, [0] * 3,
+                                                                                             [1] * 3, [0] * 3]
     k4_before = bow.transform_words_nodes.launches
     words, nodes = bow.transform_words_nodes(_vocabulary("cpu"), d, torch.tensor([True, False, True]))
     assert words.tolist() == [0, -1, 0] and nodes.tolist() == [1, -1, 1]

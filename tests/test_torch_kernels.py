@@ -23,7 +23,7 @@ from _torch_parity import slam_config
 from orbslam2_tpu_torch import config as torch_config
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.kernels import cases
-from orbslam2_tpu_torch.ops import fast, hamming, orb, patches
+from orbslam2_tpu_torch.ops import fast, hamming, matchers, orb, patches
 from orbslam2_tpu_torch.slam.system import System
 
 pytestmark = pytest.mark.cuda
@@ -149,10 +149,12 @@ def k3_cases(cuda):
     return cases.k3_cases(cuda)
 
 
-@pytest.mark.parametrize("mode", ["stereo", "frame", "points", "fuse", "mask"])
+@pytest.mark.parametrize("mode", ["stereo", "frame", "points", "fuse", "mask", "nodes"])
 def test_hamming_best2_modes_on_edge_cases(k3_cases, mode):
     """Each K3 mode equals its plain version (gate + best2_plain) on the
-    boundary, complement, empty, non-finite and tie-heavy cases."""
+    boundary, complement, empty, non-finite and tie-heavy cases (nodes:
+    rows whose node no column holds, node -1, every column in one node,
+    invalid rows and columns, ties, N == 1, M == 0, 12000 columns)."""
     n = 0
     for name, A, B, gate in k3_cases:
         if name.split()[0].split("/")[0] != mode:
@@ -190,6 +192,23 @@ def test_fused_frames_build_no_dense_gate(cuda, monkeypatch):
     gated = {k: v - gated0[k] for k, v in hamming.best2_gated.launches.items()}
     assert hamming.best2.launches["search_by_bow"] == mask0["search_by_bow"]
     assert gated["stereo"] == 3 and gated["points"] == 3 and gated["frame"] >= 3
+
+
+def test_nodes_mode_counts_under_its_caller(cuda):
+    """search_by_bow_nodes launches K3 `nodes` once per call with rows,
+    counted under `nodes:loop`, and agrees with its plain version there."""
+    for name, A, B, g in cases.k3_cases(cuda):
+        # M == 0 has no column to take an angle from
+        if not (isinstance(g, hamming.Gate) and g.mode == "nodes" and B.shape[0] > 0):
+            continue
+        angles = [torch.zeros(t.shape[0], device=cuda) for t in (A, B)]
+        args = (A, g.row_valid, angles[0], g.row_node, B, g.col_valid, angles[1], g.col_node, 0.75)
+        before = hamming.best2_gated.launches["nodes:loop"]
+        got = matchers.search_by_bow_nodes(*args)
+        assert hamming.best2_gated.launches["nodes:loop"] == before + (A.shape[0] > 0), name
+        want = matchers.search_by_bow_nodes(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+        for x, y in zip(got, want):
+            assert torch.equal(x.cpu(), y), name
 
 
 def test_wrappers_count_launches(levels):

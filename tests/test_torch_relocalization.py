@@ -1,6 +1,8 @@
 """The port's relocalization wiring on the CPU: vocabulary files against the
 JAX package's loaders, `System` with a vocabulary, attempts that must not
-raise, and the calls that stay unported.
+raise, `System.reset` keeping the database's erase hook, and the calls
+that stay unported. The tracker's early-loss reset is in
+tests/test_torch_reset.py.
 
 The relocalizer's parity with the JAX package's on one tracked map, and
 localization mode over tracked frames, are in
@@ -85,9 +87,14 @@ def test_vocabulary_files_match_jax(tmp_path):
 def test_unported_calls_raise():
     world = SyntheticWorld(n_points=50, seed=1, baseline=0.2)
     cfg = slam_config(world, torch_config)
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        System(VOCAB, cfg, device="cpu")
+    # loop closing on its own thread is the next slice; inline it is wired
+    with pytest.raises(NotImplementedError, match=r"loop closing, item 1\(b\)"):
+        System(VOCAB, cfg, threaded=True, device="cpu")
+    s = System(VOCAB, cfg, device="cpu")
+    assert s.loop_closer is not None and s.local_mapper.on_processed == s.loop_closer.insert_keyframe
+    assert s.loop_closer.on_pose_jump == s.tracker.apply_pose_jump
     s = System(VOCAB, cfg, enable_loop_closing=False, device="cpu")
+    assert s.loop_closer is None
     with pytest.raises(NotImplementedError, match="MLPnP"):
         Relocalizer(s.config, s.frontend, s.map, s.vocabulary, solver="mlpnp")
 
@@ -127,3 +134,6 @@ def test_system_relocalizes_and_never_raises():
     assert not s.tracker.only_tracking and not s.local_mapper.is_stopped()
     s.reset()
     assert not reloc.database.kf_words
+    # the reset keeps the database's erase hook
+    assert s.map.on_keyframe_removed == s.relocalizer.remove_keyframe
+

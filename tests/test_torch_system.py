@@ -84,7 +84,7 @@ def test_reset(run):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(vocabulary="vocab.npz"), dict(mesh=object()), dict(sensor="monocular"),
+    dict(vocabulary="vocab.npz", threaded=True), dict(mesh=object()), dict(sensor="monocular"),
     dict(use_viewer=True), dict(settings=torch_config.SlamConfig(camera=torch_config.CameraConfig(k1=0.1))),
 ])
 def test_refuses_unported_options(kw):
