@@ -16,7 +16,9 @@ PyTorch built for CUDA. It
      kernel K3 against its plain version (gate + `best2_plain`) on the
      edge cases of `kernels/cases.py` and, in mask mode, on random and
      tie-heavy 1200x1200 masks; holds the BoW tree-descent kernel K4
-     against its plain version on its edge cases; times the wrapper and
+     against its plain version on its edge cases (trees numbered
+     depth-first, deeper and shallower than its staged levels, leaves
+     inside them) and prints the levels it stages; times the wrapper and
      the plain version with CUDA events around back-to-back calls; and
      computes each kernel's bound (bytes or operations at the published
      peaks) from the inputs;
@@ -49,7 +51,8 @@ PyTorch built for CUDA. It
      keyframe processed meanwhile), K3's mask mode under the caller
      `relocalization`; the accepting attempt's trace record and host ms,
      its device kernels (a replay of the attempt under `torch.profiler`),
-     its K3 call held exactly against the plain version, its EPnP RANSAC
+     its K3 call and its K4 call held exactly against the plain versions,
+     its EPnP RANSAC
      against the plain CPU path on the recorded arguments and hypotheses
      (pose within 1e-3 m and 1e-3 rad, inlier counts within 2);
   6. loop closing (its own phase, on a System of its own):
@@ -69,12 +72,21 @@ PyTorch built for CUDA. It
      call's hypotheses (the same inliers, S12 within 1e-6) and a recorded
      essential graph against the CPU (camera centres within 1e-4 m), and
      replays that graph under `torch.profiler` (host ms, device ms,
-     device kernels);
+     device kernels); prints a digest of the rendered frames, of the
+     per-frame poses and of the final keyframe poses, so that two runs
+     compare line by line;
+  6b. reproducibility: replays one recorded local BA (the slice's first),
+     one recorded global BA and one recorded essential graph (the loop
+     phase's first) twice each on the card and requires the replays
+     bit-identical (`torch.equal`) to each other and to the recorded
+     result; the fixed-order segment sum under them likewise on a
+     collision-heavy input;
   7. localization mode: 8 frames after `activate_localization_mode()`,
      all tracked, no keyframe, no new map point, no fused step,
      visual-odometry points matched; then `deactivate_localization_mode()`
      and frames 33-39;
-  8. times each kernel alone by its `torch.profiler` durations (between
+  8. times each kernel alone by its `torch.profiler` durations, K4 also
+     with 2 and 3 staged levels (between
      phases 6 and 7: after the slice, so that no profiler session
      precedes the slice's frames, and before the long profile phase);
      profiles 10 more frames (per traced stage: host and device ms and
@@ -98,6 +110,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import functools
+import hashlib
 import json
 import multiprocessing
 import os
@@ -228,6 +241,17 @@ def reset_launch_counts():
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+#: failed checks whose phase's later diagnostics still run; main() fails on
+#: them before it prints any result
+DEFERRED = []
+
+
+def check_later(cond, msg):
+    if not cond:
+        print(f"chip_smoke check failed (reported at the end): {msg}")
+        DEFERRED.append(msg)
 
 
 def cuda_ms(fn, reps=20, batch=10, warmup=3) -> float:
@@ -433,16 +457,30 @@ def check_k3_main_path(calls, rows=K3_ROWS, path="main-path"):
 
 
 def check_k4_edge_cases():
-    """K4 against its plain version on the edge cases of `kernels/cases.py`."""
+    """K4 against its plain version on the edge cases of `kernels/cases.py`,
+    with every staging that fits a block (the default's included)."""
     names = []
     for name, voc, desc, valid, level in cases.k4_cases("cuda"):
-        got = bow.transform_words_nodes(voc, desc, valid, level)
         want = bow.transform_words_nodes_plain(voc, desc, valid, level)
-        torch.cuda.synchronize()
-        for g, w, label in zip(got, want, ("words", "nodes")):
-            check(torch.equal(g, w), f"bow_transform {label} differ from plain ({name})")
-        names.append(name)
-    print(f"K4 bow_transform: exact on {len(names)} edge cases ({'; '.join(names)})")
+        for levels in range(bow.stage_levels(voc.k, voc.depth, bow.MAX_STAGE_BYTES) + 1):
+            got = bow.transform_words_nodes(bow.with_stage_levels(voc, levels), desc, valid, level)
+            torch.cuda.synchronize()
+            for g, w, label in zip(got, want, ("words", "nodes")):
+                check(torch.equal(g, w), f"bow_transform {label} differ from plain ({name}, {levels} staged levels)")
+        names.append(f"{name}: k {voc.k}, depth {voc.depth}, {voc.stage_levels} staged levels by default")
+    print(f"K4 bow_transform: exact on {len(names)} edge cases at every staging ({'; '.join(names)})")
+
+
+def check_k4_call(voc, desc, valid, what):
+    """K4 exactly against its plain version on one recorded call."""
+    got = bow.transform_words_nodes(voc, desc, valid)
+    want = bow.transform_words_nodes_plain(voc, desc, valid)
+    torch.cuda.synchronize()
+    for g, w, label in zip(got, want, ("words", "nodes")):
+        check(torch.equal(g, w), f"bow_transform {label} differ from plain on {what}")
+    print(f"K4 bow_transform: exact on {what} ({int(valid.sum())} of {desc.shape[0]} descriptors valid), "
+          f"{voc.stage_levels} staged levels ({voc.stage.numel() * 4} bytes of shared memory per block)")
+    return got
 
 
 def k4_bound(voc, desc, valid):
@@ -473,20 +511,24 @@ def check_k4_main_path(system):
     voc, m = system.vocabulary, system.map
     kf = max(m.kf_valid)
     f = m.kf_frame[kf].dev
-    got = bow.transform_words_nodes(voc, f.desc, f.valid)
-    want = bow.transform_words_nodes_plain(voc, f.desc, f.valid)
-    torch.cuda.synchronize()
-    for g, w, label in zip(got, want, ("words", "nodes")):
-        check(torch.equal(g, w), f"bow_transform {label} differ from plain on keyframe {kf}")
+    got = check_k4_call(voc, f.desc, f.valid, f"keyframe {kf}'s descriptors")
     db = system.relocalizer.database
     check(np.array_equal(db.kf_words[kf], np.unique(got[0].cpu().numpy()[got[0].cpu().numpy() >= 0])),
           f"keyframe {kf}: the database's words are not K4's")
     call = functools.partial(bow.transform_words_nodes, voc, f.desc, f.valid)
     timing = dict(ms=cuda_ms(call), plain_ms=cuda_ms(functools.partial(
         bow.transform_words_nodes_plain, voc, f.desc, f.valid)))
-    print(f"K4 bow_transform: exact on keyframe {kf}'s {int(f.valid.sum())} descriptors against the "
-          f"{voc.n_words}-word vocabulary (k {voc.k}, depth {voc.depth}, {voc.node_word.shape[0]} nodes)")
+    print(f"K4 bow_transform: keyframe {kf} against the {voc.n_words}-word vocabulary (k {voc.k}, depth "
+          f"{voc.depth}, {voc.node_word.shape[0]} nodes)")
     return 0.0, timing, k4_bound(voc, f.desc, f.valid), call
+
+
+def k4_stagings(voc, call, levels=(2, 3)):
+    """Device-only ms per launch of K4 on the timed call's inputs with each
+    number of staged levels ({levels: ms}, the default's included)."""
+    desc, valid = call.args[1:]
+    return {L: device_ms(functools.partial(bow.transform_words_nodes, bow.with_stage_levels(voc, L), desc, valid),
+                         KERNELS["bow_transform"]["kernel"]) for L in levels}
 
 
 @contextlib.contextmanager
@@ -530,19 +572,23 @@ def k3_recorder(sink, keep=lambda row: True):
 def run_slice(world, cfg, frames, device, record=()):
     """Track `frames`; returns (system, poses, ms per frame, launch counts
     per frame, fused flag per frame, recorded K3 calls, devices of the
-    local BA problems). The K3 calls of the frames in `record`, and those
-    of the mapper on the first frame whose mapping pass launched both
-    mapper rows, are recorded ({frame: [(row, A, B, gate)]}); nothing is
-    recorded when `record` is empty."""
+    local BA problems, the first local BA's (args, kwargs, result)). The K3
+    calls of the frames in `record`, and those of the mapper on the first
+    frame whose mapping pass launched both mapper rows, are recorded
+    ({frame: [(row, A, B, gate)]}); nothing is recorded when `record` is
+    empty."""
     system = System(VOCAB, cfg, enable_loop_closing=False, device=device)
-    est, ms, per_frame, fused, calls, ba_devices = [], [], [], [], {}, []
+    est, ms, per_frame, fused, calls, ba_devices, ba_calls = [], [], [], [], {}, [], []
     solve = ba.ba_solve_pm_interruptible
     at = {"frame": 0, "mapping": None}
     sink = []
 
     def solve_seen(prob, *a, **k):
         ba_devices.append(prob.poses.device)
-        return solve(prob, *a, **k)
+        res = solve(prob, *a, **k)
+        if not ba_calls:
+            ba_calls.append(((prob, *a), k, res))
+        return res
 
     def keep(row):
         return at["frame"] in record or (row in MAPPER_ROWS and at["mapping"] is None)
@@ -566,7 +612,7 @@ def run_slice(world, cfg, frames, device, record=()):
                     calls[i] = frame_calls
     finally:
         ba.ba_solve_pm_interruptible = solve
-    return system, est, ms, per_frame, fused, calls, ba_devices
+    return system, est, ms, per_frame, fused, calls, ba_devices, ba_calls[0] if ba_calls else None
 
 
 def rot_err(Ra, Rb) -> float:
@@ -596,13 +642,17 @@ def run_relocalization(system, frames, poses_gt):
     check(len(blackout) == N_BLACK - 1 and all(a["stage"] == "db_candidates" for a in blackout),
           f"blackout attempts: {blackout}")
 
-    k3_calls, ransac, attempts = [], [], []
-    ransac_fn, relocalize = pnp.pnp_ransac_from_hypotheses, reloc.relocalize
+    k3_calls, ransac, attempts, k4_calls = [], [], [], []
+    ransac_fn, relocalize, bow_nodes = pnp.pnp_ransac_from_hypotheses, reloc.relocalize, reloc.compute_bow_nodes
 
     def ransac_recorded(*args):
         res = ransac_fn(*args)
         ransac.append((args, res))
         return res
+
+    def bow_nodes_recorded(desc, valid):
+        k4_calls.append((desc, valid))
+        return bow_nodes(desc, valid)
 
     def relocalize_timed(frame):
         t0 = time.perf_counter()
@@ -612,14 +662,15 @@ def run_relocalization(system, frames, poses_gt):
         return ok
 
     pnp.pnp_ransac_from_hypotheses, reloc.relocalize = ransac_recorded, relocalize_timed
+    reloc.compute_bow_nodes = bow_nodes_recorded
     try:
         with k3_recorder(k3_calls):
             T = system.track_stereo(*frames[KIDNAPPED], timestamp=101.0)
     finally:
         pnp.pnp_ransac_from_hypotheses = ransac_fn
-        del reloc.relocalize
+        del reloc.relocalize, reloc.compute_bow_nodes
     rec = reloc.trace[-1]
-    check(T is not None and rec["ok"] and len(attempts) == 1 and len(ransac) == 1,
+    check(T is not None and rec["ok"] and len(attempts) == 1 and len(ransac) == 1 and k4_calls,
           f"the kidnapped view did not relocalize: {rec}")
     err = float(np.linalg.norm(center(T) - center(poses_gt[KIDNAPPED])))
     check(err < 0.1, f"relocalized camera centre {err} m from the ground truth")
@@ -640,7 +691,7 @@ def run_relocalization(system, frames, poses_gt):
           f"{RESUMED.stop - 1} tracked, centre error max {max(resumed):.4f} m; launches {launches}")
     out = dict(relocalized_err_m=err, attempt=rec, attempt_host_ms=host_ms, attempts=n_attempts,
                resumed_err_max_m=max(resumed), launches=launches)
-    return out, k3_calls, ransac[0], frame
+    return out, k3_calls, ransac[0], frame, k4_calls[0]
 
 
 def check_ransac_cpu(recorded):
@@ -890,15 +941,16 @@ def _render(i):
 
 class _Recorder:
     """Wraps a module function for the loop phase: keeps the arguments and
-    result of the first `keep` calls whose result `want` accepts."""
+    result of the first `keep` calls whose arguments `when` accepts and
+    whose result `want` accepts."""
 
-    def __init__(self, owner, name, keep=1, want=lambda out: True):
-        self.owner, self.name, self.keep, self.want, self.calls = owner, name, keep, want, []
+    def __init__(self, owner, name, keep=1, want=lambda out: True, when=lambda args, kwargs: True):
+        self.owner, self.name, self.keep, self.want, self.when, self.calls = owner, name, keep, want, when, []
         self.fn = getattr(owner, name)
 
     def __call__(self, *args, **kwargs):
         out = self.fn(*args, **kwargs)
-        if len(self.calls) < self.keep and self.want(out):
+        if len(self.calls) < self.keep and self.when(args, kwargs) and self.want(out):
             self.calls.append((args, kwargs, out))
         return out
 
@@ -934,13 +986,17 @@ def run_loop():
         return True
 
     ctx = multiprocessing.get_context("spawn")
+    frames_digest = hashlib.sha256()
     t_start = time.perf_counter()
     with ctx.Pool(RENDER_WORKERS, initializer=_render_init, initargs=(poses_gt,)) as pool, \
             _Recorder(sim3solve, "sim3_ransac", keep=2, want=lambda r: int(r.n_inliers) >= 20) as ransac, \
             _Recorder(posegraph, "optimize_essential_graph", keep=2) as graphs, \
+            _Recorder(ba, "ba_solve_pm_interruptible", when=lambda a, kw: kw.get("n_iters_first") == 10) as gba, \
             k3_recorder(k3_calls, keep):
         reset_launch_counts()
         for i, (imL, imR) in enumerate(pool.imap(_render, range(n), chunksize=1)):
+            frames_digest.update(imL.tobytes())
+            frames_digest.update(imR.tobytes())
             t0 = time.perf_counter()
             est.append(system.track_stereo(imL, imR, timestamp=i / 20.0))
             ms.append((time.perf_counter() - t0) * 1e3)
@@ -957,14 +1013,26 @@ def run_loop():
     gates = {}
     for r in closer.rejections:
         gates[r["stage"]] = gates.get(r["stage"], 0) + 1
+    poses_digest, kf_digest = hashlib.sha256(), hashlib.sha256()
+    for T in est:
+        poses_digest.update(b"lost" if T is None else np.ascontiguousarray(T, np.float32).tobytes())
+    for k in sorted(system.map.kf_valid):
+        kf_digest.update(np.int64(k).tobytes() + np.ascontiguousarray(system.map.kf_pose[k], np.float32).tobytes())
+    digests = dict(frames=frames_digest.hexdigest()[:16], poses=poses_digest.hexdigest()[:16],
+                   keyframe_poses=kf_digest.hexdigest()[:16])
     print(f"loop phase: the figure-8 of the loop world ({n} frames, handover at {meta['handover']}), "
           f"{n_tracked}/{n} tracked, {closer.n_loops_closed} loops closed, ATE RMSE {rmse:.4f} m (bar "
           f"{LOOP_ATE_BAR} m; the TPU record of the JAX package, for comparison only: {LOOP_TPU_ATE} m), "
           f"{system.map.n_keyframes()} keyframes, {len(system.map.pt_valid)} points; ms/frame p50 "
           f"{statistics.median(ms[2:]):.2f} max {max(ms):.2f}; {wall_s:.1f} s wall (rendering overlapped)")
     print(f"  ATE RMSE (m): {accuracy}")
+    print(f"  loop digests: rendered frames {digests['frames']}, per-frame poses {digests['poses']}, final "
+          f"keyframe poses {digests['keyframe_poses']} ({system.map.n_keyframes()} keyframes)")
     for rec in closer.loops:
-        print(f"  loop: keyframe {rec['kf']} with candidate {rec['cand']}: {rec}")
+        print(f"  loop: keyframe {rec['kf']} (frame {system.map.kf_frame_id.get(rec['kf'])}) with candidate "
+              f"{rec['cand']}: {rec}")
+    print(f"  camera-centre error (m) every 25 frames, online poses aligned as the ATE aligns them: "
+          f"{drift_curve(poses_gt, est)}")
     print(f"  Sim3 attempts that a gate rejected, by gate: {gates}; accepted: "
           f"{[(r['kf'], r['cand']) for r in closer.loops]}")
     for name, st in stages.items():
@@ -973,15 +1041,28 @@ def run_loop():
     print(report)
     check(n_tracked == n, f"loop phase: {n_tracked}/{n} frames tracked")
     check(closer.n_loops_closed == 2, f"loop phase: {closer.n_loops_closed} loops closed, not 2")
-    check(rmse < LOOP_ATE_BAR, f"loop phase: ATE RMSE {rmse} >= {LOOP_ATE_BAR} m")
+    check_later(rmse < LOOP_ATE_BAR, f"loop phase: ATE RMSE {rmse} >= {LOOP_ATE_BAR} m")
     for row in LOOP_ROWS:
         check(launches[f"hamming_best2:{row}"] > 0, f"loop phase: K3 {row} never launched")
-    check(ransac.calls and graphs.calls, "loop phase: no Sim3 RANSAC past its gate or essential graph recorded")
+    check(ransac.calls and graphs.calls and gba.calls,
+          "loop phase: no Sim3 RANSAC past its gate, essential graph or global BA recorded")
     out = dict(frames=n, tracked=n_tracked, loops=closer.n_loops_closed, ate_rmse_m=rmse, ate=accuracy,
+               digests=digests,
                loop_records=closer.loops, rejected_by_gate=gates, stages=stages,
                ms_per_frame_p50=statistics.median(ms[2:]), ms_per_frame_max=max(ms), wall_s=wall_s,
                keyframes=system.map.n_keyframes(), points=len(system.map.pt_valid))
-    return out, launches, k3_calls, ransac.calls[0], graphs.calls[0]
+    return out, launches, k3_calls, ransac.calls[0], graphs.calls[0], gba.calls[0]
+
+
+def drift_curve(poses_gt, est, every=25):
+    """The online camera-centre errors (m) at every `every`-th frame after
+    the alignment `ate_rmse` makes (lost frames: None)."""
+    from orbslam2_tpu_torch.evaluation.ate import umeyama_alignment
+
+    got = [(i, center(e), center(g)) for i, (g, e) in enumerate(zip(poses_gt, est)) if e is not None]
+    R, t, s = umeyama_alignment(np.stack([c for _, c, _ in got]), np.stack([c for _, _, c in got]))
+    err = {i: float(np.linalg.norm(s * R @ c + t - g)) for i, c, g in got}
+    return [None if err.get(i) is None else round(err[i], 4) for i in range(0, len(poses_gt), every)]
 
 
 def loop_accuracy(system, poses_gt, est, handover):
@@ -1019,6 +1100,58 @@ def check_sim3_ransac_cpu(recorded):
           f"({'the same' if same else 'different'}), max S12 gap {gap:.2e}")
     check(same and gap < 1e-6, f"Sim3 RANSAC card vs cpu: inliers equal {same}, S12 gap {gap}")
     return dict(n_inliers=int(res.n_inliers), s12_gap=gap)
+
+
+def check_reproducible(local_ba, global_ba, graph):
+    """Replays of one recorded local BA, one global BA and one essential
+    graph, twice each on the card: bit-identical (`torch.equal`) to each
+    other and to the recorded result (the local BA is replayed without the
+    mapper's abort poll, which inline mapping never sets). Then the
+    fixed-order segment sum on a collision-heavy input, 10 calls, beside
+    the float `index_add_` it replaced (shown, not checked)."""
+
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    out = {}
+    for name, (args, kwargs, res) in (("local BA", local_ba), ("global BA", global_ba)):
+        kw = {k: v for k, v in kwargs.items() if k != "should_abort"}
+        t0 = time.perf_counter()
+        r1 = ba.ba_solve_pm_interruptible(*args, **kw)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        r2 = ba.ba_solve_pm_interruptible(*args, **kw)
+        torch.cuda.synchronize()
+        prob = args[0]
+        out[name] = dict(keyframes=prob.poses.shape[0], points=prob.points.shape[0],
+                         edges=int(prob.edge_valid.sum()), host_ms=host_ms, replays_equal=same(r1, r2),
+                         equal_to_run=same(r1, res))
+    args, kwargs, res = graph
+    g1 = posegraph.optimize_essential_graph(*args, **kwargs)
+    g2 = posegraph.optimize_essential_graph(*args, **kwargs)
+    torch.cuda.synchronize()
+    out["essential graph"] = dict(vertices=args[0].vertices.s.shape[0], edges=args[0].edge_i.shape[0],
+                                  replays_equal=same(g1[0], g2[0]) and torch.equal(g1[1], g2[1]),
+                                  equal_to_run=same(g1[0], res[0]) and torch.equal(g1[1], res[1]))
+    dev = args[0].vertices.t.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    K, E = 64, 200000
+    idx = torch.randint(0, K, (E,), generator=gen, device=dev)
+    x = torch.randn((E, 36), generator=gen, device=dev)
+    seg = ba.segments(idx, K, torch.ones_like(idx, dtype=torch.bool))
+    sums = [ba.segment_sum(seg, x) for _ in range(10)]
+    adds = [torch.zeros((K, 36), device=dev).index_add_(0, idx, x) for _ in range(10)]
+    torch.cuda.synchronize()
+    out["segment sum"] = dict(calls_equal=all(torch.equal(sums[0], t) for t in sums[1:]),
+                              index_add_calls_equal=all(torch.equal(adds[0], t) for t in adds[1:]),
+                              max_gap_to_index_add=float((sums[0] - adds[0]).abs().max()))
+    print(f"reproducibility: replays on the card, twice each: {out}")
+    for name, r in out.items():
+        if name == "segment sum":
+            check(r["calls_equal"], "segment sum: 10 calls on one input differ")
+        else:
+            check(r["replays_equal"] and r["equal_to_run"], f"{name}: replays differ ({r})")
+    return out
 
 
 def check_essential_graph(recorded):
@@ -1088,8 +1221,8 @@ def main():
     check_k4_edge_cases()
 
     reset_launch_counts()
-    system, est, ms, per_frame, fused, calls, ba_devices = run_slice(world, cfg, frames, "cuda",
-                                                                     record=REC_FRAMES)
+    system, est, ms, per_frame, fused, calls, ba_devices, local_ba = run_slice(world, cfg, frames, "cuda",
+                                                                               record=REC_FRAMES)
     torch.cuda.synchronize()
     launches = launch_counts()
     lm = system.local_mapper
@@ -1124,19 +1257,27 @@ def main():
 
     # relocalization and localization mode on the same system, each path
     # with its own counts
-    reloc, reloc_calls, ransac, reloc_frame = run_relocalization(system, frames, poses_gt)
+    reloc, reloc_calls, ransac, reloc_frame, reloc_k4 = run_relocalization(system, frames, poses_gt)
+    check_k4_call(system.vocabulary, *reloc_k4, "the relocalizer's call")
     results.update(check_k3_main_path({"kidnapped": [c for c in reloc_calls if c[0] == "mask:relocalization"]},
                                       rows=("mask:relocalization",), path="relocalization"))
     reloc["ransac"] = check_ransac_cpu(ransac)
     # loop closing: a System of its own on the loop world's figure-8
-    loop, loop_launches, loop_calls, loop_ransac, loop_graph = run_loop()
+    loop, loop_launches, loop_calls, loop_ransac, loop_graph, loop_gba = run_loop()
     results.update(check_k3_main_path({"loop": loop_calls}, rows=LOOP_ROWS, path="loop"))
     loop["sim3_ransac"] = check_sim3_ransac_cpu(loop_ransac)
+    check(local_ba is not None, "no local BA was recorded on the slice")
+    loop["reproducibility"] = check_reproducible(local_ba, loop_gba, loop_graph)
     # kernel profiling after the slice, so that no profiler session runs
     # before the slice's frames, and before the profile phase: profiler
     # sessions after that long one have traced no kernels on the H100
     for name, k in KERNELS.items():
         results[name][1]["device_ms"] = device_ms(results[name][3], k["kernel"])
+    stagings = k4_stagings(system.vocabulary, results["bow_transform"][3])
+    results["bow_transform"][1]["staged_levels"] = system.vocabulary.stage_levels
+    results["bow_transform"][1]["device_ms_by_staged_levels"] = stagings
+    print(f"K4 bow_transform device-only ms per launch by staged levels: {stagings} (default "
+          f"{system.vocabulary.stage_levels})")
     loop["essential_graph"] = check_essential_graph(loop_graph)
     reloc["profiled"] = profile_relocalize(system, reloc_frame)
     localization = run_localization(system, frames, poses_gt)
@@ -1191,6 +1332,7 @@ def main():
     check(worst < 0.01, f"cuda and cpu poses differ by {worst} m")
     threaded = run_threaded(cfg, frames, poses_gt)
 
+    check(not DEFERRED, f"{len(DEFERRED)} deferred check(s) failed: {DEFERRED}")
     print(json.dumps({"slice": {
         "frames": N_FRAMES, "tracked": n_tracked, "ate_rmse_m": rmse,
         "ms_per_frame_p50": statistics.median(steady), "ms_per_frame_max": max(steady),

@@ -1,6 +1,6 @@
-"""Device-only time per frame of the front end's kernels K2 and K1, and
-per matcher call of the Hamming kernel K3, in one source tree of the port,
-for comparing two trees on one card.
+"""Device-only time per frame of the front end's kernels K2 and K1, per
+matcher call of the Hamming kernel K3 and per launch of the BoW kernel K4,
+in one source tree of the port, for comparing two trees on one card.
 
     python3 kernel_device_ab.py [--tree DIR] [--frames N]
 
@@ -29,6 +29,14 @@ frame's `stereo_match`, `search_by_projection_frame` and
 way: per call, the device time of its K3 launch, of all its device kernels
 (the gate construction, where the tree builds one, and the post-processing
 included) and their count.
+
+For K4 it takes the descriptors of the last keyframe of that run (1200
+slots) and times one `transform_words_nodes` call against the generic
+vocabulary (`assets/vocab_generic.npz`) the same way, before the other
+kernels; where the tree stages the top of the tree
+(`bow.with_stage_levels`), also with 0-3 staged levels, and on the
+first 1 and 132 descriptors; and, for scale,
+the device time of a fill of 1200 int32.
 
 It exits non-zero when no CUDA card is visible.
 """
@@ -79,7 +87,7 @@ MATCHERS = ("stereo_match", "search_by_projection_frame", "search_by_projection_
 def matcher_calls(world, n_features=1200):
     """The tree's matcher calls of frame K3_FRAME of the synthetic sequence,
     tracked on the card: {matcher name: (args, kwargs)} (the first call of
-    each)."""
+    each), and the descriptors and valid flags of the last keyframe."""
     from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
     from orbslam2_tpu_torch.ops import matchers
     from orbslam2_tpu_torch.slam.system import System
@@ -106,7 +114,47 @@ def matcher_calls(world, n_features=1200):
     finally:
         for name, fn in originals.items():
             setattr(matchers, name, fn)
-    return {name: (originals[name], *calls[name]) for name in MATCHERS}
+    kf = system.map.kf_frame[max(system.map.kf_valid)].dev
+    return {name: (originals[name], *calls[name]) for name in MATCHERS}, (kf.desc, kf.valid)
+
+
+def k4_times(args, desc, valid):
+    """K4's device-only ms per launch on one keyframe's descriptors against
+    the generic vocabulary: as the tree launches it and, where the tree
+    stages the top of the tree, with 0-3 staged levels, and on the first 1
+    and 132 descriptors; beside it, CUDA events around 200 back-to-back calls
+    (launch gaps included); and a fill of 1200 int32 for scale."""
+    import torch
+
+    from orbslam2_tpu_torch.vocab import bow
+
+    voc = bow.load_npz(os.path.join(os.path.abspath(args.tree), "assets", "vocab_generic.npz"), "cuda")
+    runs = {"k4_default": (voc, desc.shape[0])}
+    if hasattr(bow, "with_stage_levels"):
+        runs.update({f"k4_staged_levels_{L}": (bow.with_stage_levels(voc, L), desc.shape[0]) for L in range(4)})
+    # the same call on its first descriptors only: one warp, and one warp per SM
+    runs.update({f"k4_first_{n}_descriptors": (voc, n) for n in (1, 132)})
+    out = {"k4_descriptors": {"n": desc.shape[0], "valid": int(valid.sum())}}
+    # the shortest kernel there is, for scale: a fill of 1200 int32
+    fill = torch.empty(desc.shape[0], dtype=torch.int32, device="cuda")
+    frames = frame_kernels(lambda: fill.fill_(1), ("",), args.frames)
+    out["fill_1200_int32_device_ms"] = summarize(frames, "")["device_ms_per_frame"]
+    for label, (v, n) in runs.items():
+        call = lambda: bow.transform_words_nodes(v, desc[:n], valid[:n])  # noqa: E731
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        k4 = summarize(frame_kernels(call, ("bow_transform_kernel",), args.frames), "bow_transform_kernel")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        out[label] = {"device_ms": k4["device_ms_per_frame"], "launches": k4["launches_per_frame"],
+                      "calls_dropped": k4["frames_dropped"], "events_ms_per_call": start.elapsed_time(end) / 200,
+                      "staged_levels": getattr(v, "stage_levels", None)}
+    return out
 
 
 def main():
@@ -152,6 +200,10 @@ def main():
         api = "one call per level"
 
     out = {"tree": os.path.abspath(args.tree), "api": api, "card": smi, "frames": args.frames}
+    # K4 first: profiler sessions late in a long run of them have traced no
+    # kernels on the H100
+    calls, (kf_desc, kf_valid) = matcher_calls(world)
+    out.update(k4_times(args, kf_desc, kf_valid))
     for name, fn, kernel in (("k2_fast_nms", k2, "fast_nms_kernel"), ("k1_orb_patch_desc", k1, "orb_patch_desc_kernel")):
         for _ in range(3):
             fn()
@@ -159,7 +211,7 @@ def main():
         frames = frame_kernels(fn, (kernel, "reflection_pad"), args.frames)
         out[name] = {**summarize(frames, kernel),
                      "reflect_pad": summarize(frames, "reflection_pad")}
-    for name, (fn, a, kw) in matcher_calls(world).items():
+    for name, (fn, a, kw) in calls.items():
         call = lambda: fn(*a, **kw)  # noqa: E731
         for _ in range(3):
             call()

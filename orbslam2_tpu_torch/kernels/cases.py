@@ -328,6 +328,42 @@ def wide_tree(rng, k=40):
     return (*_tree_arrays(kids, nxt, k, node_desc), k, 2), node_desc
 
 
+def dfs_tree(rng, k, p_child, leaves=()):
+    """A random tree numbered depth-first, as DBoW2 numbers its trees (a
+    node's subtree takes the ids after it): below level l each of a node's
+    k slots holds a child with probability p_child[l], len(p_child) levels
+    deep; the nodes at the slot paths in `leaves` (tuples of child slots
+    from the root) get no children. Each child is its parent with ~10% of
+    its bits flipped. Returns the arrays and the node descriptors."""
+    depth = len(p_child)
+    children, descs = {}, [rng.integers(0, 2**32, 8, dtype=np.uint64).astype(np.uint32)]
+
+    def grow(node, path):
+        if len(path) == depth or path in leaves:
+            return
+        slots = [-1] * k
+        for j in range(k):
+            if rng.uniform() < p_child[len(path)]:
+                slots[j] = len(descs)
+                flips = (rng.uniform(size=(8, 32)) < 0.1) << np.arange(32, dtype=np.uint64)
+                descs.append(descs[node] ^ flips.sum(axis=1).astype(np.uint32))
+                grow(slots[j], path + (j,))
+        children[node] = slots
+
+    grow(0, ())
+    node_desc = np.stack(descs)
+    return (*_tree_arrays(children, len(descs), k, node_desc), k, depth), node_desc
+
+
+def _queries(rng, node_desc, n_near, n_random):
+    """Node descriptors with one bit flipped (walks that reach every part
+    of the tree, leaves inside it too), and random descriptors."""
+    near = node_desc[rng.integers(0, len(node_desc), n_near)].copy()
+    near[np.arange(n_near), rng.integers(0, 8, n_near)] ^= np.uint32(1) << rng.integers(0, 32, n_near).astype(np.uint32)
+    rand = rng.integers(0, 2**32, (n_random, 8), dtype=np.uint64).astype(np.uint32)
+    return np.concatenate([node_desc, near, rand])
+
+
 def k4_raw_cases(seed: int = 0):
     """[(name, (children_desc, children_idx, node_word, word_weight, k,
     depth), desc uint32 [N, 8], valid [N], node_level)] as numpy."""
@@ -351,6 +387,29 @@ def k4_raw_cases(seed: int = 0):
                            TIE_WORDS[rng.integers(0, len(TIE_WORDS), (200, 8))].view(np.uint32)])
     out.append(("k = 40 tree, ties", voc, desc, rng.uniform(size=len(desc)) < 0.9, 1))
     out.append(("N == 0", voc, np.zeros((0, 8), np.uint32), np.zeros(0, bool), 2))
+    # K4 stages the top levels of a tree (2 at k = 10, up to 3 in the
+    # checks at every staging): trees numbered depth-first, as the generic
+    # vocabulary is, deeper than the staged levels and no deeper
+    voc, node_desc = dfs_tree(rng, 10, (1.0, 0.5, 0.4, 0.3, 0.3))
+    desc = _queries(rng, node_desc, 600, 200)
+    valid = rng.uniform(size=len(desc)) < 0.9
+    for level in (1, 4):
+        out.append((f"depth-first k 10 depth 5 ({len(node_desc)} nodes), level {level}", voc, desc, valid, level))
+    # ORBvoc's shape (k 10, depth 6) cut by raggedness, with leaves inside
+    # the staged levels: the root's first child (level 1) and grandchildren
+    # through its second and third (level 2)
+    voc, node_desc = dfs_tree(rng, 10, (1.0, 0.5, 0.4, 0.2, 0.2, 0.2),
+                              leaves={(0,), (1, 0), (1, 1), (1, 2), (2, 0), (2, 1), (2, 2)})
+    desc = _queries(rng, node_desc, 600, 200)
+    valid = rng.uniform(size=len(desc)) < 0.9
+    for level in (2, 5):
+        out.append((f"ORBvoc-shaped k 10 depth 6 ({len(node_desc)} nodes, leaves at levels 1 and 2), level "
+                    f"{level}", voc, desc, valid, level))
+    for p_child in ((0.7,), (0.8, 0.5)):
+        voc, node_desc = dfs_tree(rng, 10, p_child)
+        desc = _queries(rng, node_desc, 100, 100)
+        out.append((f"depth {len(p_child)} k 10, no deeper than the staged levels", voc, desc,
+                    rng.uniform(size=len(desc)) < 0.9, len(p_child)))
     return out
 
 

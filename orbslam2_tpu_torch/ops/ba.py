@@ -8,16 +8,18 @@ iterations, the chi2 outlier cut (5.991 mono / 7.815 stereo), 10 more.
 
 Layout: each of P point rows carries up to D observations [P, D]; padded
 slots have `edge_valid` False and weigh nothing. Point-side sums run over
-the D axis; camera-side sums are fp32 `index_add_` over the camera index
-of each edge, and the camera gather of the H*v product is plain indexing.
+the D axis; camera-side sums are fp32 fixed-order segment sums over the
+camera index of each edge (`segment_sum`), and the camera gather of the
+H*v product is plain indexing.
 (The JAX package does both as bf16 one-hot matmuls with f32 accumulation,
 `_pm_onehot`/`_pm_mm`/`_pm_camera_gather`, because the TPU serializes
 gathers and scatters; the port keeps the camera-side operand in fp32, so
 its BA agrees with the JAX package's within a tolerance, not bit for bit.)
 
 Every LM step stays on the tensors' device with no host sync: accept or
-reject is a `torch.where`. `ba_solve_pm_interruptible` syncs only where it
-reads `float(state.F)` between chunks of iterations.
+reject is a `torch.where`. A solve syncs once when it lays out the camera
+segments, and `ba_solve_pm_interruptible` also where it reads
+`float(state.F)` between chunks of iterations.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..geometry import se3
 from ..geometry.camera import Camera
@@ -134,31 +137,74 @@ def _pm_weights(r, comp, prob: BAProblemPM, depth_ok, use_huber: bool):
     return w, e2, torch.where(active, rho, 0.0)
 
 
-def _camera_sum(idx: torch.Tensor, x: torch.Tensor, K: int) -> torch.Tensor:
+class Segments(NamedTuple):
+    """A fixed index [E] -> [0, K) laid out for fixed-order sums: `order`
+    lists the kept entries grouped by index, in entry order within an
+    index, and `offsets` [K + 1] bounds index k's group."""
+
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+
+def segments(idx: torch.Tensor, K: int, keep: torch.Tensor) -> Segments:
+    """`idx`'s segments over the entries that `keep` marks, built once per
+    problem: its index stays fixed for the whole solve. A stable sort and
+    an integer count, so the layout is the same on every run; one host
+    sync reads the number of kept entries."""
+    key = torch.where(keep.reshape(-1), idx.reshape(-1), K)
+    counts = torch.bincount(key, minlength=K + 1)[:K]
+    offsets = F.pad(torch.cumsum(counts, 0), (1, 0))
+    order = torch.argsort(key, stable=True)[:int(offsets[-1])]  # dropped entries (key K) last
+    return Segments(order=order, offsets=offsets)
+
+
+def segment_sum(seg: Segments, x: torch.Tensor) -> torch.Tensor:
+    """x [E, ...] summed per index -> [K, ...], 0 for an empty segment.
+
+    `torch.segment_reduce` over the entries gathered in segment order adds
+    each segment's entries one after another, in entry order (the CPU's
+    `index_add_` order), on every call and every run: on CUDA one thread
+    computes each output element of a multi-dimensional input by a loop,
+    and a one-dimensional input takes CUB's segmented reduction, whose
+    tree is fixed, where a float `index_add_` adds in the order its
+    atomics land. chip_smoke.py replays the solves on the card to check
+    it."""
+    return torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, axis=0, unsafe=True)
+
+
+def camera_segments(prob: BAProblemPM) -> Segments:
+    """The segments of the camera index over the problem's valid [P, D]
+    slots: a padded or invalid slot weighs nothing (its terms are exact
+    zeros), and leaving it out keeps camera 0's segment from growing by
+    every padding slot."""
+    return segments(prob.obs_kf, prob.poses.shape[0], prob.edge_valid)
+
+
+def _camera_sum(seg: Segments, x: torch.Tensor) -> torch.Tensor:
     """[P,D,c] per-edge values summed per camera -> [K, c] (fp32)."""
-    flat = x.reshape(-1, x.shape[-1])
-    return torch.zeros((K, flat.shape[1]), dtype=flat.dtype, device=flat.device).index_add_(0, idx, flat)
+    return segment_sum(seg, x.reshape(-1, x.shape[-1]))
 
 
-def _pm_assemble(poses, points, prob: BAProblemPM, cam: Camera, use_huber: bool):
+def _pm_assemble(poses, points, prob: BAProblemPM, cam: Camera, use_huber: bool, seg: Segments):
     """Gradients, diagonal blocks and robust cost (+ edge terms for reuse)."""
     K = prob.poses.shape[0]
-    idx = prob.obs_kf.reshape(-1)
     r, Jc, Jp, comp, dok = _pm_edge_terms(poses, points, prob, cam)
     w, _, rho = _pm_weights(r, comp, prob, dok, use_huber)
     W = w[..., None] * comp  # [P,D,3]
     Wr = W * r
-    gc = _camera_sum(idx, torch.einsum("pdci,pdc->pdi", Jc, Wr), K)
+    gc = _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wr))
     gp = torch.einsum("pdci,pdc->pi", Jp, Wr)
-    Hcc = _camera_sum(idx, torch.einsum("pdci,pdc,pdcj->pdij", Jc, W, Jc).flatten(-2), K).reshape(K, 6, 6)
+    Hcc = _camera_sum(seg, torch.einsum("pdci,pdc,pdcj->pdij", Jc, W, Jc).flatten(-2)).reshape(K, 6, 6)
     Hpp = torch.einsum("pdci,pdc,pdcj->pij", Jp, W, Jp)
     return (r, Jc, Jp, W), gc, gp, Hcc, Hpp, torch.sum(rho)
 
 
-def ba_pm_init(prob: BAProblemPM, cam: Camera, use_huber: bool = True) -> PMLMState:
+def ba_pm_init(prob: BAProblemPM, cam: Camera, use_huber: bool = True,
+               seg: Optional[Segments] = None) -> PMLMState:
     """Initial LM state: lambda = 1e-5 x the largest Hessian diagonal entry
-    (g2o's heuristic)."""
-    _, _, _, Hcc0, Hpp0, F0 = _pm_assemble(prob.poses, prob.points, prob, cam, use_huber)
+    (g2o's heuristic). `seg`: `camera_segments(prob)`, built here if None."""
+    seg = camera_segments(prob) if seg is None else seg
+    _, _, _, Hcc0, Hpp0, F0 = _pm_assemble(prob.poses, prob.points, prob, cam, use_huber, seg)
     diag_max = torch.maximum(torch.diagonal(Hcc0, dim1=-2, dim2=-1).max(),
                              torch.diagonal(Hpp0, dim1=-2, dim2=-1).max())
     return PMLMState(poses=prob.poses, points=prob.points, lam=1e-5 * diag_max,
@@ -166,14 +212,14 @@ def ba_pm_init(prob: BAProblemPM, cam: Camera, use_huber: bool = True) -> PMLMSt
 
 
 def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
-               use_huber: bool = True) -> PMLMState:
+               use_huber: bool = True, seg: Optional[Segments] = None) -> PMLMState:
     """One point-major LM iteration: PCG inner solve of the damped normal
-    equations, then accept or reject on the device."""
-    K = prob.poses.shape[0]
-    idx = prob.obs_kf.reshape(-1)
+    equations, then accept or reject on the device. `seg`:
+    `camera_segments(prob)`, built here if None."""
+    seg = camera_segments(prob) if seg is None else seg
     free = (~prob.pose_fixed).to(prob.poses.dtype)[:, None]
     poses, points, lam, ni, F = state
-    (r, Jc, Jp, W), gc, gp, Hcc, Hpp, _ = _pm_assemble(poses, points, prob, cam, use_huber)
+    (r, Jc, Jp, W), gc, gp, Hcc, Hpp, _ = _pm_assemble(poses, points, prob, cam, use_huber, seg)
     gc = gc * free
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
@@ -184,7 +230,7 @@ def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
         vc = vc * free
         a = torch.einsum("pdci,pdi->pdc", Jc, vc[prob.obs_kf]) + torch.einsum("pdci,pi->pdc", Jp, vp)
         Wa = W * a
-        Hc = _camera_sum(idx, torch.einsum("pdci,pdc->pdi", Jc, Wa), K)
+        Hc = _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wa))
         Hp = torch.einsum("pdci,pdc->pi", Jp, Wa)
         return (Hc + lam * vc) * free, Hp + lam * vp
 
@@ -217,7 +263,7 @@ def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
     dxp = -xp
     poses_new = se3.retract(poses, dxc)
     points_new = points + dxp
-    F_new = _pm_assemble(poses_new, points_new, prob, cam, use_huber)[-1]
+    F_new = _pm_assemble(poses_new, points_new, prob, cam, use_huber, seg)[-1]
     gdot = torch.sum(dxc * (lam * dxc - gc)) + torch.sum(dxp * (lam * dxp - gp))
     rho = (F - F_new) / (gdot + 1e-12)
     ok = (rho > 0) & torch.isfinite(F_new)
@@ -245,14 +291,15 @@ def pm_inlier_mask(poses, points, prob: BAProblemPM, cam: Camera) -> torch.Tenso
 
 def ba_solve_pm(prob: BAProblemPM, cam: Camera, n_iters_first: int = 5, n_iters_second: int = 10,
                 n_cg: int = 20) -> BAResultPM:
-    """The two-stage schedule without a host sync."""
-    state = ba_pm_init(prob, cam)
+    """The two-stage schedule; one host sync, in `camera_segments`."""
+    seg = camera_segments(prob)
+    state = ba_pm_init(prob, cam, seg=seg)
     for _ in range(n_iters_first):
-        state = ba_pm_step(prob, cam, state, n_cg)
+        state = ba_pm_step(prob, cam, state, n_cg, seg=seg)
     prob2 = prob._replace(edge_valid=pm_inlier_mask(state.poses, state.points, prob, cam))
-    state = ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam)
+    state = ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam, seg=seg)
     for _ in range(n_iters_second):
-        state = ba_pm_step(prob2, cam, state, n_cg)
+        state = ba_pm_step(prob2, cam, state, n_cg, seg=seg)
     inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
     return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)
 
@@ -273,9 +320,10 @@ def ba_solve_pm_interruptible(
     iterations and before the second phase; once it returns True the
     remaining iterations are skipped and the current estimate is finalized
     (the chi2 inlier marking still runs). After each chunk the host reads
-    `float(state.F)`, the solve's only sync, which bounds the abort latency."""
+    `float(state.F)`, which bounds the abort latency."""
     if should_abort is None:
         should_abort = lambda: False  # noqa: E731
+    seg = camera_segments(prob)
 
     def phase(prob_, state, n_iters):
         done = 0
@@ -284,15 +332,15 @@ def ba_solve_pm_interruptible(
                 break
             n = min(sync_every, n_iters - done)
             for _ in range(n):
-                state = ba_pm_step(prob_, cam, state, n_cg)
+                state = ba_pm_step(prob_, cam, state, n_cg, seg=seg)
             float(state.F)
             done += n
         return state
 
-    state = phase(prob, ba_pm_init(prob, cam), n_iters_first)
+    state = phase(prob, ba_pm_init(prob, cam, seg=seg), n_iters_first)
     prob2 = prob._replace(edge_valid=pm_inlier_mask(state.poses, state.points, prob, cam))
     if not should_abort():
-        state = phase(prob2, ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam),
+        state = phase(prob2, ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam, seg=seg),
                       n_iters_second)
     inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
     return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)

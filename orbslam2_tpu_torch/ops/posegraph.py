@@ -13,13 +13,16 @@ identity information):
     batched dual pass for every edge and direction (the JAX package
     vmaps jax.jacfwd over the edges);
   * the normal equations solved matrix-free by block-Jacobi PCG, the
-    gradient and the diagonal blocks summed per vertex with `index_add`.
+    gradient, the diagonal blocks and each H*p product summed per vertex
+    over both ends of every edge by one fixed-order segment sum
+    (`ops/ba.py::segment_sum`), so a solve gives the same bits on every
+    run on the card.
 
 Fixed vertices and, with `fix_scale` (stereo, Optimizer.cpp:848), the
 log-scale coordinate take no update. The solve runs in the problem's
 dtype: the loop closer builds it in float64 (the JAX package solves in
 float32), so that the card and the CPU agree to far below the test's bar.
-Nothing here syncs the host.
+One host sync, when the per-vertex segments are built.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..geometry import sim3
+from .ba import segment_sum, segments
 
 
 class PoseGraphProblem(NamedTuple):
@@ -79,9 +83,12 @@ def optimize_essential_graph(prob: PoseGraphProblem, n_iters: int = 20, n_cg: in
     if fix_scale:
         update[:, 6] = 0.0
     eye7 = torch.eye(7, dtype=dtype, device=dev)
+    # the edges' two ends as one fixed index: entry e is edge e's i end,
+    # entry E + e its j end; an invalid edge weighs nothing and stays out
+    ends = segments(torch.cat([ei, ej]), K, torch.cat([prob.edge_valid, prob.edge_valid]))
 
-    def vsum(idx, x):
-        return torch.zeros((K,) + x.shape[1:], dtype=dtype, device=dev).index_add_(0, idx, x)
+    def vsum(xi, xj):
+        return segment_sum(ends, torch.cat([xi, xj]))
 
     def cost(V):
         r = _edge_residual(_gather(V, ei), _gather(V, ej), prob.meas)
@@ -90,15 +97,14 @@ def optimize_essential_graph(prob: PoseGraphProblem, n_iters: int = 20, n_cg: in
     def assemble(V):
         r, Ji, Jj = _edge_res_jac(_gather(V, ei), _gather(V, ej), prob.meas)
         rw = r * w[:, None]
-        g = vsum(ei, torch.einsum("eci,ec->ei", Ji, rw)) + vsum(ej, torch.einsum("eci,ec->ei", Jj, rw))
-        Hd = (vsum(ei, torch.einsum("eci,e,ecj->eij", Ji, w, Ji))
-              + vsum(ej, torch.einsum("eci,e,ecj->eij", Jj, w, Jj)))
+        g = vsum(torch.einsum("eci,ec->ei", Ji, rw), torch.einsum("eci,ec->ei", Jj, rw))
+        Hd = vsum(torch.einsum("eci,e,ecj->eij", Ji, w, Ji), torch.einsum("eci,e,ecj->eij", Jj, w, Jj))
         return g, Hd, (rw * r).sum(), Ji, Jj
 
     def hv(v, Ji, Jj, lam):
         a = torch.einsum("eci,ei->ec", Ji, v[ei]) + torch.einsum("eci,ei->ec", Jj, v[ej])
         aw = a * w[:, None]
-        return vsum(ei, torch.einsum("eci,ec->ei", Ji, aw)) + vsum(ej, torch.einsum("eci,ec->ei", Jj, aw)) + lam * v
+        return vsum(torch.einsum("eci,ec->ei", Ji, aw), torch.einsum("eci,ec->ei", Jj, aw)) + lam * v
 
     def safe(x):
         return torch.where(torch.abs(x) < 1e-20, 1e-20, x)

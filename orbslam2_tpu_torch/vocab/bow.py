@@ -10,9 +10,13 @@ tensors on the System's device,
     word_weight   [n_words] float32 -- idf weights
 
 with the descriptors' bits in int32 words, as the port keeps every
-descriptor (`convert.py`). `transform_words_nodes` descends the tree for
-all N descriptors of a frame: on a CUDA tensor it launches K4
-(`csrc/bow_transform.cu`, one warp per descriptor); on a CPU tensor it
+descriptor (`convert.py`), and two tables K4 reads, built once when the
+vocabulary is made: `children_word` [n_nodes, k] (each child's word, so
+the winning child brings it) and `stage`, the top `stage_levels` levels
+of the tree laid out breadth-first for shared memory (`stage_table`).
+`transform_words_nodes` descends the tree for all N descriptors of a
+frame: on a CUDA tensor it launches K4 (`csrc/bow_transform.cu`, one warp
+per descriptor, the staged levels in shared memory); on a CPU tensor it
 takes `transform_words_nodes_plain`, a loop of `depth` gather + XOR +
 popcount + masked argmin steps. The sparse tf-idf vector and the L1 score
 run on the host in numpy, as in the JAX package.
@@ -40,6 +44,17 @@ from ..ops import hamming
 
 #: a missing child's distance (the JAX package's `1 << 30`)
 MISSING = 1 << 30
+#: bytes of one staged child: its 32-byte row, its global id and its word
+STAGE_ENTRY_BYTES = 40
+#: shared memory a K4 block may take for the staged levels: the most levels
+#: whose table fits are staged. k = 10 gets 2 levels (4,400 bytes): on the
+#: H100 they beat 3 (44,400 bytes, whose copy costs more than the step it
+#: saves) and 1 (PERF.md §6)
+STAGE_BYTES = 8 * 1024
+#: the most shared memory a block may take on sm_90 (the H100's opt-in
+#: limit, which the launcher reads from the device)
+MAX_STAGE_BYTES = 232448
+_TABLES = ("children_desc", "children_idx", "node_word", "word_weight", "children_word", "stage")
 
 
 class Vocabulary(NamedTuple):
@@ -49,6 +64,9 @@ class Vocabulary(NamedTuple):
     word_weight: torch.Tensor  # [n_words] float32 (idf)
     k: int
     depth: int
+    children_word: torch.Tensor  # [n_nodes, k] int32: node_word of each child, -1 when missing
+    stage: torch.Tensor  # int32: `stage_table` of the top `stage_levels` levels
+    stage_levels: int
 
     @property
     def n_words(self) -> int:
@@ -77,21 +95,79 @@ def from_arrays(children_desc, children_idx, node_word, word_weight, k: int, dep
         raise ValueError(f"vocabulary: child id {int(ci.max())} >= {n_nodes} nodes")
     if depth < 1:
         raise ValueError(f"vocabulary depth {depth} < 1")
+    cw = np.where(ci >= 0, nw[np.maximum(ci, 0)], -1).astype(np.int32)
+    levels = stage_levels(k, depth)
+    tables = dict(children_desc=cd, children_idx=ci, node_word=nw, word_weight=ww, children_word=cw,
+                  stage=stage_table(cd, ci, cw, k, levels))
     dev = torch.device(device)
-    return Vocabulary(
-        children_desc=torch.from_numpy(cd.copy()).to(dev),
-        children_idx=torch.from_numpy(ci.copy()).to(dev),
-        node_word=torch.from_numpy(nw.copy()).to(dev),
-        word_weight=torch.from_numpy(ww.copy()).to(dev),
-        k=int(k), depth=int(depth),
-    )
+    return Vocabulary(k=int(k), depth=int(depth), stage_levels=levels,
+                      **{f: torch.from_numpy(a.copy()).to(dev) for f, a in tables.items()})
 
 
 def to_device(voc: Vocabulary, device) -> Vocabulary:
     """`voc` with its tables on `device`."""
     dev = torch.device(device)
-    return voc._replace(**{f: getattr(voc, f).to(dev) for f in
-                           ("children_desc", "children_idx", "node_word", "word_weight")})
+    return voc._replace(**{f: getattr(voc, f).to(dev) for f in _TABLES})
+
+
+def n_staged_children(k: int, levels: int) -> int:
+    """Children of the nodes of the top `levels` levels in a full k-ary
+    tree: k + k^2 + ... + k^levels (K4's staged table entries)."""
+    return sum(k ** (level + 1) for level in range(levels))
+
+
+def stage_levels(k: int, depth: int, budget: int = STAGE_BYTES) -> int:
+    """The most levels (at most `depth`) whose staged table fits `budget`
+    bytes: with STAGE_BYTES, 2 for k = 10 (4,400 bytes), 1 for k = 40."""
+    levels = 0
+    while levels < depth and n_staged_children(k, levels + 1) * STAGE_ENTRY_BYTES <= budget:
+        levels += 1
+    return levels
+
+
+def stage_table(children_desc: np.ndarray, children_idx: np.ndarray, children_word: np.ndarray, k: int,
+                levels: int) -> np.ndarray:
+    """K4's staged top of the tree, as int32 words: the nodes of the top
+    `levels` levels in a full k-ary breadth-first numbering (node 0 the
+    root, the children of staged node s at s * k + 1 + j; a missing child
+    leaves a hole whose children are all missing), and per staged node s
+    and slot j, entry e = s * k + j:
+
+        [e] the row's low 16 bytes, [E + e] its high 16 bytes (int4 units),
+        then [e] (the child's global id, its word) (int2 units),
+
+    E = `n_staged_children(k, levels)`, the whole padded to 16 bytes. The
+    kernel walks the first `levels` steps in this table by local index and
+    carries the global id, which it reads below the staged levels."""
+    n_nodes_staged = sum(k ** level for level in range(levels))
+    glob = np.full(n_nodes_staged, -1, np.int64)
+    if n_nodes_staged:
+        glob[0] = 0
+    first, width = 0, 1
+    for _ in range(levels - 1):
+        parents = np.arange(first, first + width)
+        g = glob[parents]
+        glob[parents[:, None] * k + 1 + np.arange(k)] = np.where(
+            g[:, None] >= 0, children_idx[np.maximum(g, 0)], -1)
+        first, width = first + width, width * k
+    has, g = glob >= 0, np.maximum(glob, 0)
+    ci = np.where(has[:, None], children_idx[g], -1)
+    cw = np.where(has[:, None], children_word[g], -1)
+    cd = np.where(has[:, None, None], children_desc[g], 0).astype(np.int32)
+    flat = np.concatenate([cd[..., :4].reshape(-1), cd[..., 4:].reshape(-1),
+                           np.stack([ci, cw], -1).reshape(-1)]).astype(np.int32)
+    return np.concatenate([flat, np.zeros(-len(flat) % 4, np.int32)])
+
+
+def with_stage_levels(voc: Vocabulary, levels: int) -> Vocabulary:
+    """`voc` with K4's table staging `levels` levels in place of the
+    default (to compare stagings); at most `stage_levels(k, depth,
+    MAX_STAGE_BYTES)`."""
+    if not 0 <= levels <= stage_levels(voc.k, voc.depth, MAX_STAGE_BYTES):
+        raise ValueError(f"{levels} staged levels do not fit a block (k {voc.k}, depth {voc.depth})")
+    cpu = [getattr(voc, f).cpu().numpy() for f in ("children_desc", "children_idx", "children_word")]
+    table = stage_table(*cpu, voc.k, levels)
+    return voc._replace(stage=torch.from_numpy(table).to(voc.device), stage_levels=levels)
 
 
 def feature_node_level(depth: int) -> int:
@@ -141,8 +217,10 @@ class _K4Args(ctypes.Structure):
     the blocks it launched."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in
-                ("desc", "valid", "children_desc", "children_idx", "node_word", "out")] + [
-        (name, ctypes.c_int) for name in ("n", "k", "depth", "node_level", "n_nodes", "n_blocks")
+                ("desc", "valid", "children_desc", "children_idx", "children_word", "node_word", "stage",
+                 "out")] + [
+        (name, ctypes.c_int) for name in ("n", "k", "depth", "node_level", "n_nodes", "stage_levels",
+                                          "stage_ints", "n_blocks")
     ]
 
 
@@ -171,13 +249,14 @@ def transform_words_nodes(voc: Vocabulary, desc: torch.Tensor, valid: torch.Tens
     if not 1 <= node_level <= voc.depth:
         raise ValueError(f"K4: node_level {node_level} outside 1..{voc.depth}")
     out = torch.empty((2, n), dtype=torch.int32, device=dev)
-    desc, cd = hamming._aligned(desc), hamming._aligned(voc.children_desc)
+    desc, cd, stage = (hamming._aligned(t) for t in (desc, voc.children_desc, voc.stage))
     valid = valid.contiguous()
     args = _K4Args(desc=desc.data_ptr(), valid=valid.data_ptr(), children_desc=cd.data_ptr(),
                    children_idx=voc.children_idx.contiguous().data_ptr(),
-                   node_word=voc.node_word.contiguous().data_ptr(), out=out.data_ptr(),
+                   children_word=voc.children_word.contiguous().data_ptr(),
+                   node_word=voc.node_word.contiguous().data_ptr(), stage=stage.data_ptr(), out=out.data_ptr(),
                    n=n, k=voc.k, depth=voc.depth, node_level=node_level,
-                   n_nodes=voc.node_word.shape[0])
+                   n_nodes=voc.node_word.shape[0], stage_levels=voc.stage_levels, stage_ints=stage.numel())
     build.launch("bow_transform_launch", args)
     if args.n_blocks:
         with _count_lock:
