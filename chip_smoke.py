@@ -55,6 +55,13 @@ PyTorch built for CUDA. It
      its EPnP RANSAC
      against the plain CPU path on the recorded arguments and hypotheses
      (pose within 1e-3 m and 1e-3 rad, inlier counts within 2);
+  5b. MLPnP relocalization: a `Relocalizer(..., solver="mlpnp")` over the
+     slice's map and keyframe database relocalizes frame 16's view (within
+     0.1 m); its MLPnP RANSAC calls against the CPU on the recorded
+     hypotheses (pose within 1e-3 m and 1e-3 rad, inliers within 2);
+  5c. undistortion: a `Frontend` with EuRoC cam0's k1, k2, p1 and p2 gives
+     stereo and mono keypoints equal, within 1e-3 px, to the undistortion
+     on the CPU path of the raw keypoints of a `Frontend` without them;
   6. loop closing (its own phase, on a System of its own):
      `System("assets/vocab_generic.npz", cfg)` with loop closing on (the
      default), on the card, over the whole 591-frame figure-8 of the
@@ -81,6 +88,15 @@ PyTorch built for CUDA. It
      bit-identical (`torch.equal`) to each other and to the recorded
      result; the fixed-order segment sum under them likewise on a
      collision-heavy input;
+  6c. the monocular slice (a System of its own): K1 and K2 with one image,
+     exact against their plain versions; `System(VOCAB, cfg,
+     sensor=Sensor.MONOCULAR)` over tests/test_monocular.py's 35 frames,
+     launch counts set to 0 just before and read just after; the bars of
+     that test (>= 30/35 tracked, scale-aligned ATE < 0.06 m, > 400
+     points, no stereo observation in a keyframe, initial median depth in
+     (0.2, 5)); K1 and K2 one launch per frame; K3 `mask:mono_init`,
+     `frame` and `points` exact on recorded calls; the two-view
+     initializer against the CPU on the recorded matches and hypotheses;
   7. localization mode: 8 frames after `activate_localization_mode()`,
      all tracked, no keyframe, no new map point, no fused step,
      visual-odometry points matched; then `deactivate_localization_mode()`
@@ -98,7 +114,20 @@ PyTorch built for CUDA. It
      mapper and the keyframe indexing (K4) on the worker thread, >= 39
      frames tracked, ATE RMSE < 0.06 m, every live keyframe indexed,
      `wait_idle` without a worker error;
-  10. prints one JSON line describing the kernels (one row per K3 mode and
+  9b. the monocular loop: tests/test_mono_loop.py on the card (the circuit
+     world, 1.16 laps rendered ahead once, a 1.3x scale drift injected
+     after frame 85, loop closing inline with a free scale): tracking OK,
+     >= 1 loop, the injected factor > 1.2, the scale error shrunk > 5x;
+     prints each loop's Sim3 scale;
+  9c. the threaded loop: `System(vocab_circuit, cfg, threaded=True)` over
+     the same lap, then on until its first loop (at most 450 frames):
+     tests/test_pipeline.py's bars (<= 2 lost, >= 1 loop, >= 1 frame
+     inside a correction window, steady max latency < max(4 x median,
+     2.5 s), ATE < 0.45 m), `wait_idle` and `shutdown` without an error,
+     no global BA thread alive after; prints the global BA's host ms and
+     its aborts;
+  10. prints each phase's wall time, one JSON line of the phases' results,
+     one JSON line describing the kernels (one row per K3 mode and
      caller, and K4), then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
@@ -117,6 +146,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -127,11 +157,13 @@ from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.evaluation.ate import ate_rmse
 from orbslam2_tpu_torch.kernels import build, cases
-from orbslam2_tpu_torch.geometry import sim3
-from orbslam2_tpu_torch.ops import ba, fast, hamming, orb, patches, pnp, posegraph, sim3solve
-from orbslam2_tpu_torch.slam.frontend import FrameHost
+from orbslam2_tpu_torch.geometry import sim3, triangulation
+from orbslam2_tpu_torch.ops import (ba, fast, hamming, initializer, mlpnp, orb, patches, pnp, posegraph, sim3solve,
+                                    undistort)
+from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
 from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
-from orbslam2_tpu_torch.slam.system import System
+from orbslam2_tpu_torch.slam.relocalization import CANDIDATES, Relocalizer
+from orbslam2_tpu_torch.slam.system import Sensor, System
 from orbslam2_tpu_torch.slam.tracking import TrackingState
 from orbslam2_tpu_torch.vocab import bow
 
@@ -196,12 +228,15 @@ KERNELS = {
                                     replaces="orbslam2_tpu/slam/loop_closing.py:680", path="loop"),
     "hamming_best2:fuse:loop_fusion": dict(kernel="GateFuse", source=K3_SOURCE,
                                            replaces="orbslam2_tpu/slam/loop_closing.py:922", path="loop"),
+    "hamming_best2:mask:mono_init": dict(kernel="GateMask", source=K3_SOURCE,
+                                         replaces="orbslam2_tpu/slam/tracking.py:630", path="mono"),
 }
 # K3's rows: the tracker's modes, then the mapper's (mask mode under its
 # caller epipolar_match); the relocalizer's mask row is recorded on its path
 K3_ROWS = ("mask", "stereo", "frame", "points", "fuse", "mask:epipolar")
 # a mask-mode call's row by its caller
-MASK_ROWS = {"search_by_bow": "mask", "epipolar_match": "mask:epipolar", "relocalization": "mask:relocalization"}
+MASK_ROWS = {"search_by_bow": "mask", "epipolar_match": "mask:epipolar", "relocalization": "mask:relocalization",
+             "mono_init": "mask:mono_init"}
 MAPPER_ROWS = ("fuse", "mask:epipolar")
 # the mapper's stages (its shutdown-report spans), reported per call
 MAPPING_STAGES = ("Keyframe insertion", "Map point culling", "Map point creation", "Map point fusion",
@@ -218,6 +253,28 @@ LOOP_ROWS = ("nodes:loop", "fuse:sim3", "fuse:loop_fusion")
 # processes rendering the figure-8 ahead of the tracker (the sprite
 # renderer takes ~2 s of host time per frame)
 RENDER_WORKERS = 6
+# the monocular slice: tests/test_monocular.py's world and 35 frames, the
+# rows it checks, the bars of that test
+MONO_WORLD = dict(n_points=1200, seed=31, depth_range=(4.0, 10.0))
+N_MONO = 35
+MONO_ROWS = ("mask:mono_init", "frame", "points")
+# the circuit of tests/test_mono_loop.py and tests/test_pipeline.py (one
+# lap of 150 frames), rendered once for both phases, and its vocabulary
+CIRCUIT_WORLD = dict(n_points=2000, seed=21, baseline=0.2, vertical_extent=6.0, cylinder_radius=11.0,
+                     near_fraction=0.15)
+VOCAB_CIRCUIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "assets", "vocab_circuit.npz")
+N_CIRCUIT = 150
+# the monocular loop: 1.16 laps, the drift injected after frame 85
+MONO_LOOP_EXTRA = 24
+INJECT_AT = 85
+DRIFT_SCALE = 1.3
+# the threaded loop: frames past the first lap until the loop closes
+THREADED_MAX_EXTRA = 300
+# the device of the monocular, MLPnP, undistortion and circuit phases (a
+# rehearsal of them on the CPU sets "cpu")
+DEVICE = "cuda"
+# EuRoC cam0's distortion (the 752x480 camera of the synthetic worlds)
+DISTORTION = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-05)
 
 
 def launch_counts() -> dict:
@@ -349,7 +406,7 @@ def check_fast_nms(levels):
     return err, timing, bound(8.0 * px, K2_OPS_PER_PX * px), call
 
 
-def check_orb_patch_desc(levels, xs_l, ys_l):
+def check_orb_patch_desc(levels, xs_l, ys_l, n_kp_want=2400):
     a, d = patches.orb_patch_desc_levels(levels, xs_l, ys_l)
     # the per-level plain calls: windows from a reflect-padded copy of each
     # level, not the kernel's own reflect indexing
@@ -363,7 +420,7 @@ def check_orb_patch_desc(levels, xs_l, ys_l):
     n_kp = a.numel()
     print(f"K1 orb_patch_desc_levels: one launch, {n_kp} keypoints over {len(levels)} levels, "
           f"max angle error {ang_err:.3e} rad, bit error rate {ber:.3e}")
-    check(n_kp == 2400, f"K1 keypoint count {n_kp} != 2400")
+    check(n_kp == n_kp_want, f"K1 keypoint count {n_kp} != {n_kp_want}")
     check(ang_err <= 1e-4, f"K1 angle error {ang_err} > 1e-4 rad")
     check(ber < 0.01, f"K1 bit error rate {ber} >= 1%")
     call = lambda: patches.orb_patch_desc_levels(levels, xs_l, ys_l)
@@ -925,18 +982,21 @@ def run_threaded(cfg, frames, poses_gt) -> dict:
 _render_state = {}
 
 
-def _render_init(poses):
-    _render_state.update(world=SyntheticWorld(**LOOP_WORLD), poses=poses)
+def _render_init(poses, world=LOOP_WORLD, as_uint8=True):
+    _render_state.update(world=SyntheticWorld(**world), poses=poses, as_uint8=as_uint8)
 
 
 def _render(i):
-    """Frame i of the loop world's figure-8 as uint8 images (as the tracker
-    takes them). The renderer's noise and gain follow how many frames it
-    rendered before: set to i, as if it had rendered the sequence in order."""
+    """Frame i of `poses` in the worker's world: uint8 images (as the stereo
+    tracker takes them), or the renderer's float32 images. The renderer's
+    noise and gain follow how many frames it rendered before: set to i, as
+    if it had rendered the sequence in order."""
     world = _render_state["world"]
     world._n_rendered = i
-    return tuple(np.clip(np.rint(im), 0, 255).astype(np.uint8)
-                 for im in world.render_stereo(_render_state["poses"][i]))
+    ims = world.render_stereo(_render_state["poses"][i])
+    if not _render_state["as_uint8"]:
+        return ims
+    return tuple(np.clip(np.rint(im), 0, 255).astype(np.uint8) for im in ims)
 
 
 class _Recorder:
@@ -1192,6 +1252,402 @@ def check_essential_graph(recorded):
                 device_ms=dev_ms, device_kernels=len(kernels))
 
 
+def phase_done(name, t0, times):
+    """Print and keep a phase's own wall time."""
+    times[name] = time.perf_counter() - t0
+    print(f"phase {name}: {times[name]:.1f} s")
+
+
+def mono_poses(n):
+    """tests/test_monocular.py's trajectory: forward and right with a small
+    vertical wave, no rotation."""
+    out = []
+    for i in range(n):
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 3] = -np.array([0.06 * i, 0.01 * np.sin(0.3 * i), 0.015 * i])
+        out.append(T)
+    return out
+
+
+def init_near_gate(args, T21, eps=1e-3):
+    """Matches of a two-view initializer call (its recorded arguments) whose
+    CheckRT quantities under T21 lie within `eps` (relative) of a gate: the
+    depth in either view, the parallax angle against acos(0.99998), the
+    squared reprojection error in either view against 4."""
+    _, uv1, uv2, _, cam = args[:5]
+    uv1, uv2, T = uv1.cpu().double(), uv2.cpu().double(), T21.cpu().double()
+    xn1 = torch.stack([(uv1[:, 0] - cam.cx) / cam.fx, (uv1[:, 1] - cam.cy) / cam.fy], -1)
+    xn2 = torch.stack([(uv2[:, 0] - cam.cx) / cam.fx, (uv2[:, 1] - cam.cy) / cam.fy], -1)
+    X, _ = triangulation.triangulate_dlt(torch.eye(4, dtype=T.dtype)[:3], T[:3], xn1, xn2)
+    Xc2 = X @ T[:3, :3].T + T[:3, 3]
+    R, t = T[:3, :3], T[:3, 3]
+    ang = torch.arccos(torch.clamp(triangulation.rays_parallax_cos(torch.zeros(3, dtype=T.dtype), -R.T @ t, X), -1, 1))
+    near = (torch.abs(X[:, 2]) < eps) | (torch.abs(Xc2[:, 2]) < eps)
+    near |= torch.abs(ang - float(np.arccos(0.99998))) <= eps * float(np.arccos(0.99998))
+    for Xc, uv in ((X, uv1), (Xc2, uv2)):
+        z = torch.where(torch.abs(Xc[:, 2]) < 1e-9, 1e-9, Xc[:, 2])
+        e2 = (cam.fx * Xc[:, 0] / z + cam.cx - uv[:, 0]) ** 2 + (cam.fy * Xc[:, 1] / z + cam.cy - uv[:, 1]) ** 2
+        near |= torch.abs(e2 - 4.0) <= 4.0 * eps
+    return near.numpy()
+
+
+def check_initializer_cpu(calls):
+    """The card's two-view initializer against the CPU on every recorded
+    call's matches and hypotheses: the same success and model, T21 within
+    1e-4 where it succeeded, the same point mask except matches within 1e-3
+    of a gate or of a model-inlier difference (at most 2 of those)."""
+    worst = dict(t21_gap=0.0, point_ok_diff=0, inlier_diff=0)
+    for args, kwargs, res in calls:
+        cpu = initializer.initialize_two_view_from_hypotheses(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kwargs)
+        check(bool(res.success) == bool(cpu.success) and bool(res.used_homography) == bool(cpu.used_homography),
+              f"two-view initializer card vs cpu: success {bool(res.success)}/{bool(cpu.success)}, homography "
+              f"{bool(res.used_homography)}/{bool(cpu.used_homography)}")
+        inl_diff = np.nonzero(res.inliers.cpu().numpy() != cpu.inliers.numpy())[0]
+        check(len(inl_diff) <= 2, f"two-view initializer: {len(inl_diff)} model inliers differ card vs cpu")
+        worst["inlier_diff"] = max(worst["inlier_diff"], len(inl_diff))
+        if not bool(cpu.success):
+            continue
+        gap = float((res.T21.cpu() - cpu.T21).abs().max())
+        check(gap < 1e-4, f"two-view initializer card vs cpu: T21 gap {gap}")
+        diff = np.nonzero(res.point_ok.cpu().numpy() != cpu.point_ok.numpy())[0]
+        allowed = init_near_gate(args, cpu.T21)
+        allowed[inl_diff] = True
+        check(bool(allowed[diff].all()), f"two-view initializer: point_ok differs away from a gate at {diff}")
+        worst.update(t21_gap=max(worst["t21_gap"], gap), point_ok_diff=max(worst["point_ok_diff"], len(diff)))
+    print(f"two-view initializer: card vs cpu on {len(calls)} recorded calls (matches and hypotheses): {worst}")
+    return worst
+
+
+def run_mono(times):
+    """The monocular slice: `System(VOCAB, cfg, sensor=Sensor.MONOCULAR)` on
+    the card over tests/test_monocular.py's 35 frames (loop closing on, with
+    a free scale). K1 and K2 on one image, exact against their plain
+    versions on a mono frame; launch counts set to 0 just before the frames
+    and read just after; the K3 rows `mask:mono_init`, `frame` and `points`
+    and the two-view initializer recorded. Bars: initialized, >= 30/35
+    tracked, no keyframe with a stereo observation, > 400 points,
+    scale-aligned ATE RMSE < 0.06 m, initial map median depth in (0.2, 5)."""
+    t0 = time.perf_counter()
+    world = SyntheticWorld(**MONO_WORLD)
+    cfg = slam_config(world)
+    poses = mono_poses(N_MONO)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(RENDER_WORKERS, initializer=_render_init, initargs=(poses, MONO_WORLD, False)) as pool:
+        images = [ims[0] for ims in pool.map(_render, range(N_MONO), chunksize=1)]
+    # K1 and K2 launched with one image, as features_mono launches them
+    levels, xs_l, ys_l = level_inputs(torch.from_numpy(images[2][None]).to(DEVICE), orb.OrbParams())
+    check_fast_nms(levels)
+    check_orb_patch_desc(levels, xs_l, ys_l, n_kp_want=1200)
+
+    system = System(VOCAB, cfg, sensor=Sensor.MONOCULAR, device=DEVICE)
+    check(system.config.monocular and not system.loop_closer.fix_scale, "the monocular System's wiring")
+    k3_calls, est, per_frame, ms = [], [], [], []
+    seen = {row: 0 for row in MONO_ROWS}
+
+    def keep(row):
+        if row not in seen or seen[row] >= 3:
+            return False
+        seen[row] += 1
+        return True
+
+    with _Recorder(initializer, "initialize_two_view_from_hypotheses", keep=16) as inits, \
+            k3_recorder(k3_calls, keep):
+        reset_launch_counts()
+        for i, im in enumerate(images):
+            before = launch_counts()
+            t1 = time.perf_counter()
+            est.append(system.track_monocular(im, i / 20.0))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            per_frame.append({k: v - before[k] for k, v in launch_counts().items()})
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    system.shutdown()
+    m = system.map
+    n_tracked = sum(T is not None for T in est)
+    pairs = [(g, e) for g, e in zip(poses, est) if e is not None]
+    rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]),
+                    with_scale=True) if pairs else float("inf")
+    k0 = min(m.kf_pose) if m.kf_pose else None
+    med = float("nan")
+    if k0 is not None:
+        T = m.kf_pose[k0].astype(np.float64)
+        ids = np.asarray(list(m.pt_valid)[:200], np.int64)
+        med = float(np.median(m.pt_pos[ids] @ T[2, :3] + T[2, 3]))
+    init_frame = next((i for i, e in enumerate(est) if e is not None), None)
+    stereo_obs = sum(int((m.kf_frame[k].u_right >= 0).sum()) for k in m.kf_valid)
+    out = dict(frames=N_MONO, tracked=n_tracked, init_frame=init_frame, ate_rmse_scale_aligned_m=rmse,
+               keyframes=m.n_keyframes(), points=len(m.pt_valid), initial_median_depth=med,
+               stereo_observations=stereo_obs, init_calls=len(inits.calls),
+               keyframes_mapped=system.local_mapper.n_processed, ms_per_frame_p50=statistics.median(ms[2:]),
+               ms_per_frame_max=max(ms[2:]))
+    print(f"monocular: {n_tracked}/{N_MONO} tracked (initialized on frame {init_frame} after "
+          f"{len(inits.calls)} initializer call(s)), scale-aligned ATE RMSE {rmse:.4f} m, {m.n_keyframes()} "
+          f"keyframes, {len(m.pt_valid)} points, initial median depth {med:.3f}, {stereo_obs} stereo "
+          f"observations in keyframes; ms/frame p50 {out['ms_per_frame_p50']:.2f} max {out['ms_per_frame_max']:.2f} "
+          f"(frames 2..{N_MONO - 1}); launches {launches}")
+    check(init_frame is not None and n_tracked >= 30, f"monocular: {n_tracked}/{N_MONO} frames tracked")
+    check(stereo_obs == 0, f"monocular: {stereo_obs} stereo observations in keyframes")
+    check(len(m.pt_valid) > 400, f"monocular: {len(m.pt_valid)} map points")
+    check(rmse < 0.06, f"monocular: scale-aligned ATE RMSE {rmse} >= 0.06 m")
+    check(0.2 < med < 5.0, f"monocular: initial map median depth {med}")
+    for name in ("fast_nms", "orb_patch_desc"):
+        check(all(c[name] == 1 for c in per_frame), f"monocular: {name} launches per frame "
+              f"{[c[name] for c in per_frame]}")
+    for row in MONO_ROWS:
+        check(launches[f"hamming_best2:{row}"] > 0, f"monocular: K3 {row} never launched")
+    out["initializer"] = check_initializer_cpu(inits.calls)
+    rows = check_k3_main_path({"mono": k3_calls}, rows=MONO_ROWS, path="mono")
+    phase_done("monocular", t0, times)
+    return out, launches, {"hamming_best2:mask:mono_init": rows["hamming_best2:mask:mono_init"]}
+
+
+def run_mlpnp_relocalization(system, frames, poses_gt, times):
+    """A Relocalizer with solver="mlpnp" over the slice's map and keyframe
+    database relocalizes frame KIDNAPPED's view (within 0.1 m); its MLPnP
+    RANSAC calls, on the card, against the CPU on the recorded hypotheses:
+    pose within 1e-3 m and 1e-3 rad, inlier counts within 2."""
+    t0 = time.perf_counter()
+    r = Relocalizer(system.config, system.frontend, system.map, system.vocabulary, solver="mlpnp")
+    r.database = system.relocalizer.database
+    u8 = [np.clip(np.rint(im), 0, 255).astype(np.uint8) for im in frames[KIDNAPPED]]
+    frame = FrameHost(system.frontend.process(*u8), 200.0, 10_000)
+    with _Recorder(mlpnp, "mlpnp_ransac_from_hypotheses", keep=CANDIDATES) as rec, system.map.lock:
+        t1 = time.perf_counter()
+        ok = r.relocalize(frame)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t1) * 1e3
+    check(ok, f"MLPnP relocalization failed: {r.trace[-1]}")
+    err = float(np.linalg.norm(center(frame.Tcw) - center(poses_gt[KIDNAPPED])))
+    check(err < 0.1, f"MLPnP relocalized camera centre {err} m from the ground truth")
+    worst = (0.0, 0.0, 0)
+    for args, kwargs, res in rec.calls:
+        cpu = mlpnp.mlpnp_ransac_from_hypotheses(*(a.cpu() for a in args))
+        Tg, Tc = res.Tcw.cpu().numpy(), cpu.Tcw.numpy()
+        dc, dr = float(np.linalg.norm(center(Tg) - center(Tc))), rot_err(Tg[:3, :3], Tc[:3, :3])
+        dn = abs(int(res.n_inliers) - int(cpu.n_inliers))
+        worst = (max(worst[0], dc), max(worst[1], dr), max(worst[2], dn))
+        check(dc < 1e-3 and dr < 1e-3 and dn <= 2,
+              f"MLPnP RANSAC card vs cpu: centre {dc} m, rotation {dr} rad, inliers {int(res.n_inliers)} vs "
+              f"{int(cpu.n_inliers)}")
+    out = dict(relocalized_err_m=err, host_ms=host_ms, attempt=r.trace[-1], ransac_calls=len(rec.calls),
+               card_vs_cpu=dict(centre_m=worst[0], rotation_rad=worst[1], inliers=worst[2]))
+    print(f"MLPnP relocalization: frame {KIDNAPPED}'s view relocalized {err:.4f} m from the ground truth in "
+          f"{host_ms:.2f} ms host ({r.trace[-1]}); {len(rec.calls)} MLPnP RANSAC call(s) card vs cpu on the "
+          f"recorded hypotheses: centre {worst[0]:.2e} m, rotation {worst[1]:.2e} rad, inliers {worst[2]}")
+    phase_done("MLPnP relocalization", t0, times)
+    return out
+
+
+def check_undistortion(cfg, frames, times):
+    """A Frontend with k1, k2, p1 and p2 on the card: its stereo and mono
+    keypoints equal the undistortion, on the CPU path, of the raw keypoints
+    of a Frontend without distortion (within 1e-3 px); everything else
+    unchanged."""
+    t0 = time.perf_counter()
+    cfg_d = SlamConfig(camera=CameraConfig(**{**cfg.camera.__dict__, **DISTORTION}), orb=cfg.orb)
+    fe_d, fe = Frontend(cfg_d, DEVICE), Frontend(cfg, DEVICE)
+    check(fe_d.has_distortion and not fe.has_distortion, "undistortion: the frontends' distortion flags")
+    c = cfg_d.camera
+    u8 = [np.clip(np.rint(im), 0, 255).astype(np.uint8) for im in frames[5]]
+    out = {}
+    for name, got, raw in (("stereo", fe_d.process(*u8), fe.process(*u8)),
+                           ("mono", fe_d.process_mono(u8[0]), fe.process_mono(u8[0]))):
+        want = undistort.undistort_points(raw.uv.cpu(), c.fx, c.fy, c.cx, c.cy, c.k1, c.k2, c.p1, c.p2, c.k3)
+        gap = float((got.uv.cpu() - want).abs().max())
+        moved = float((got.uv - raw.uv).abs().max())
+        same = all(torch.equal(getattr(got, k), getattr(raw, k)) for k in ("octave", "desc", "valid", "u_right"))
+        out[name] = dict(max_gap_px=gap, max_shift_px=moved)
+        check(gap < 1e-3 and same and moved > 1.0,
+              f"undistortion ({name}): card vs cpu {gap} px, shift {moved} px, other fields equal {same}")
+    print(f"undistortion (k1 {c.k1}, k2 {c.k2}, p1 {c.p1}, p2 {c.p2}): card vs the cpu path on the raw keypoints "
+          f"{out}")
+    phase_done("undistortion", t0, times)
+    return out
+
+
+# tests/test_mono_loop.py's scale-drift helpers (numpy over the map)
+
+
+def inject_scale_drift(m, tracker, s):
+    """A similarity of scale s applied to the recent submap (keyframes and
+    points from the oldest local keyframe on) and the tracker's motion
+    state, anchored at that keyframe's centre. Returns its id."""
+    kc = min(tracker.local_keyframes)
+    anchor = m.kf_center(kc)
+    for k in [k for k in m.kf_valid if k >= kc]:
+        T = m.kf_pose[k].astype(np.float64)
+        c2 = s * ((-T[:3, :3].T @ T[:3, 3]) - anchor) + anchor
+        T2 = T.copy()
+        T2[:3, 3] = -T[:3, :3] @ c2
+        m.kf_pose[k] = T2.astype(np.float32)
+    pids = m.pt_ids()
+    sel = pids[m.pt_first_kf_id[pids] >= kc]
+    m.pt_pos[sel] = s * (m.pt_pos[sel] - anchor) + anchor
+    m.pt_min_dist[sel] *= s
+    m.pt_max_dist[sel] *= s
+    lf = tracker.last_frame
+    T = lf.Tcw.astype(np.float64)
+    c2 = s * ((-T[:3, :3].T @ T[:3, 3]) - anchor) + anchor
+    T2 = T.copy()
+    T2[:3, 3] = -T[:3, :3] @ c2
+    lf.Tcw = T2.astype(np.float32)
+    if tracker.velocity is not None:
+        V = tracker.velocity.copy()
+        V[:3, 3] *= s
+        tracker.velocity = V
+    return kc
+
+
+def map_snapshot(m):
+    kf_ids = sorted(m.kf_valid)
+    return kf_ids, {k: m.kf_center(k) for k in kf_ids}, {k: m.kf_timestamp[k] for k in kf_ids}
+
+
+def segment_scale_ratio(snapshot, kc, poses_gt):
+    """The median estimated / true inter-keyframe chord of the drifted
+    segment (ids >= kc) over that of the clean one."""
+    kf_ids, centers, stamps = snapshot
+
+    def med_ratio(ids):
+        r = []
+        for a, b in zip(ids[:-1], ids[1:]):
+            g = np.linalg.norm(center(poses_gt[int(round(stamps[b] * 20.0))]) -
+                               center(poses_gt[int(round(stamps[a] * 20.0))]))
+            if g > 1e-6:
+                r.append(np.linalg.norm(centers[b] - centers[a]) / g)
+        return float(np.median(r))
+
+    clean, drift = [k for k in kf_ids if k < kc], [k for k in kf_ids if k >= kc]
+    check(len(clean) >= 3 and len(drift) >= 3, f"mono loop: segments of {len(clean)} and {len(drift)} keyframes")
+    return med_ratio(drift) / med_ratio(clean)
+
+
+def run_mono_loop(times):
+    """tests/test_mono_loop.py on the card: `System(VOCAB_CIRCUIT, cfg,
+    sensor=Sensor.MONOCULAR)` (loop closing inline, free scale) over 1.16
+    laps of the circuit, the recent submap scaled by DRIFT_SCALE after frame
+    INJECT_AT. The lap is rendered once, ahead of the tracker, by
+    RENDER_WORKERS processes, and returned for the threaded loop phase.
+    Bars: tracking OK at the injection and at the end, >= 1 loop closed, the
+    injected factor > 1.2 before closure, err_post < err_pre / 5."""
+    t0 = time.perf_counter()
+    world = SyntheticWorld(**CIRCUIT_WORLD)
+    cfg = slam_config(world)
+    lap = world.trajectory_circuit(N_CIRCUIT)
+    poses_gt = lap + lap[:MONO_LOOP_EXTRA]
+    system = System(VOCAB_CIRCUIT, cfg, sensor=Sensor.MONOCULAR, device=DEVICE)
+    closer, tracker, m = system.loop_closer, system.tracker, system.map
+    check(not closer.fix_scale and not closer.threaded_gba, "mono loop: the loop closer's wiring")
+    frames, est, ms = [], [], []
+    state_at_injection = None
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(RENDER_WORKERS, initializer=_render_init, initargs=(lap, CIRCUIT_WORLD, False)) as pool:
+        rendered = pool.imap(_render, range(N_CIRCUIT), chunksize=1)
+        reset_launch_counts()
+        for i in range(len(poses_gt)):
+            if i < N_CIRCUIT:
+                frames.append(next(rendered))
+            t1 = time.perf_counter()
+            est.append(system.track_monocular(frames[i % N_CIRCUIT][0], i / 20.0))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            if i == INJECT_AT:
+                state_at_injection = tracker.state
+                before = map_snapshot(m)
+                kc = inject_scale_drift(m, tracker, DRIFT_SCALE)
+                pre = map_snapshot(m)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+    post = map_snapshot(m)
+    system.shutdown()
+    r_before = segment_scale_ratio(before, kc, poses_gt)
+    factor = segment_scale_ratio(pre, kc, poses_gt) / r_before
+    err_pre = abs(np.log(factor))
+    err_post = abs(np.log(segment_scale_ratio(post, kc, poses_gt)))
+    n_tracked = sum(T is not None for T in est)
+    init_frame = next((i for i, T in enumerate(est) if T is not None), None)
+    lost = [i for i, T in enumerate(est) if T is None and init_frame is not None and i > init_frame]
+    out = dict(frames=len(poses_gt), tracked=n_tracked, init_frame=init_frame, lost_after_init=lost,
+               tracker_events=tracker.events[:8], ms_per_frame_p50=statistics.median(ms[2:]),
+               ms_per_frame_max=max(ms[2:]), loops=closer.n_loops_closed, kc=kc,
+               drift_factor=factor, err_pre=err_pre, err_post=err_post,
+               sim3_scales=[r.get("s12") for r in closer.loops], loop_records=closer.loops,
+               keyframes=m.n_keyframes(), points=len(m.pt_valid))
+    print(f"mono loop: {n_tracked}/{len(poses_gt)} tracked (initialized on frame {init_frame}; lost after it: "
+          f"{lost}; the tracker's first failures: {tracker.events[:8]}; ms/frame p50 {out['ms_per_frame_p50']:.2f} "
+          f"max {out['ms_per_frame_max']:.2f}), {closer.n_loops_closed} loop(s) closed with free "
+          f"scale, Sim3 scale(s) {out['sim3_scales']}; drift injected at frame {INJECT_AT} from keyframe {kc}: "
+          f"factor {factor:.4f}, scale error {err_pre:.4f} -> {err_post:.4f}; loops {closer.loops}; launches "
+          f"{launches}")
+    check(state_at_injection == TrackingState.OK and tracker.state == TrackingState.OK and kc > 5,
+          f"mono loop: state {state_at_injection} at the injection, {tracker.state} at the end, kc {kc}")
+    check(closer.n_loops_closed >= 1, "mono loop: no loop closed")
+    check(factor > 1.2, f"mono loop: injected factor {factor} not visible")
+    check(err_post < err_pre / 5.0, f"mono loop: scale error {err_pre} -> {err_post}, not a 5x shrink")
+    phase_done("mono loop", t0, times)
+    return out, frames, lap
+
+
+def run_threaded_loop(frames, lap, times):
+    """tests/test_pipeline.py's threaded run on the card: `System(VOCAB_CIRCUIT,
+    cfg, threaded=True)` (mapping and loop closing on worker threads, each
+    global BA on its own) over one lap of the circuit, then on around it
+    until the loop closes (at most THREADED_MAX_EXTRA more frames). Bars:
+    <= 2 frames lost and OK at the end, >= 1 loop, >= 1 frame completed
+    inside a correction window, steady max latency < max(4 x median, 2.5 s),
+    ATE RMSE < 0.45 m, wait_idle and shutdown without a worker error and no
+    global BA thread alive after."""
+    t0 = time.perf_counter()
+    cfg = slam_config(SyntheticWorld(**CIRCUIT_WORLD))
+    system = System(VOCAB_CIRCUIT, cfg, threaded=True, device=DEVICE)
+    closer = system.loop_closer
+    check(system.loop_worker is not None and closer.threaded_gba, "threaded loop: the System's wiring")
+    poses_gt, est, lat, stamps = [], [], [], []
+
+    def feed(i):
+        imL, imR = frames[i % N_CIRCUIT]
+        poses_gt.append(lap[i % N_CIRCUIT])
+        t1 = time.monotonic()
+        est.append(system.track_stereo(imL, imR, i / 20.0))
+        t2 = time.monotonic()
+        lat.append(t2 - t1)
+        stamps.append((t1, t2))
+
+    for i in range(N_CIRCUIT):
+        feed(i)
+    i = N_CIRCUIT
+    while closer.n_loops_closed == 0 and i < N_CIRCUIT + THREADED_MAX_EXTRA:
+        feed(i)
+        i += 1
+    system.wait_idle(600.0)
+    system.shutdown()
+    gba_alive = any(t.name == "gba-thread" and t.is_alive() for t in threading.enumerate())
+    n_lost = sum(e is None for e in est)
+    overlapped = sum(t1 >= w0 and t2 <= w1 for w0, w1 in closer.correction_windows for t1, t2 in stamps)
+    steady = np.sort(np.asarray(lat[20:]))[:-4]
+    med, worst = float(np.median(steady)), float(steady.max())
+    pairs = [(g, e) for g, e in zip(poses_gt, est) if e is not None]
+    rmse = ate_rmse(np.stack([center(e) for _, e in pairs]), np.stack([center(g) for g, _ in pairs]))
+    gba_ms = [v / 1e3 for v in system.timers.samples.get("Global BA", [])]
+    out = dict(frames=len(est), lost=n_lost, loops=closer.n_loops_closed, frames_in_correction=overlapped,
+               correction_windows_s=[w1 - w0 for w0, w1 in closer.correction_windows],
+               latency_median_s=med, latency_max_steady_s=worst, ate_rmse_m=rmse, gba_host_ms=gba_ms,
+               gba_aborted=closer.n_gba_aborted, loop_records=closer.loops)
+    print(f"threaded loop: {len(est)} frames, {n_lost} lost, state {system.tracker.state.name}, "
+          f"{closer.n_loops_closed} loop(s), {overlapped} frame(s) completed inside the correction window(s) "
+          f"{out['correction_windows_s']} s; latency median {med:.3f} s, steady max {worst:.3f} s; ATE RMSE "
+          f"{rmse:.4f} m; global BA host ms {gba_ms}, aborted {closer.n_gba_aborted}")
+    check(n_lost <= 2 and system.tracker.state == TrackingState.OK,
+          f"threaded loop: {n_lost} frames lost, state {system.tracker.state}")
+    check(closer.n_loops_closed >= 1, "threaded loop: no loop closed")
+    check(overlapped >= 1, "threaded loop: no frame completed inside a correction window")
+    check(worst < max(4.0 * med, 2.5), f"threaded loop: steady max latency {worst} s, median {med} s")
+    check(rmse < 0.45, f"threaded loop: ATE RMSE {rmse} >= 0.45 m")
+    check(not gba_alive, "threaded loop: a global BA thread is alive after shutdown")
+    phase_done("threaded loop", t0, times)
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1203,6 +1659,8 @@ def main():
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
+    times = {}
+    t_main = time.perf_counter()
     build.load()
     print(f"kernel build: {build.build_seconds:.2f} s ({build.library_path()})")
 
@@ -1262,12 +1720,21 @@ def main():
     results.update(check_k3_main_path({"kidnapped": [c for c in reloc_calls if c[0] == "mask:relocalization"]},
                                       rows=("mask:relocalization",), path="relocalization"))
     reloc["ransac"] = check_ransac_cpu(ransac)
+    phase_done("slice and relocalization", t_main, times)
+    mlpnp_reloc = run_mlpnp_relocalization(system, frames, poses_gt, times)
+    undistortion = check_undistortion(cfg, frames, times)
     # loop closing: a System of its own on the loop world's figure-8
+    t0 = time.perf_counter()
     loop, loop_launches, loop_calls, loop_ransac, loop_graph, loop_gba = run_loop()
     results.update(check_k3_main_path({"loop": loop_calls}, rows=LOOP_ROWS, path="loop"))
     loop["sim3_ransac"] = check_sim3_ransac_cpu(loop_ransac)
     check(local_ba is not None, "no local BA was recorded on the slice")
     loop["reproducibility"] = check_reproducible(local_ba, loop_gba, loop_graph)
+    phase_done("loop", t0, times)
+    # the monocular slice: a System of its own, before the kernel profiling
+    mono, mono_launches, mono_rows = run_mono(times)
+    results.update(mono_rows)
+    t0 = time.perf_counter()
     # kernel profiling after the slice, so that no profiler session runs
     # before the slice's frames, and before the profile phase: profiler
     # sessions after that long one have traced no kernels on the H100
@@ -1286,8 +1753,10 @@ def main():
     check(lm.n_processed > processed, "mapping did not resume after localization mode")
     print(f"mapping resumed: {lm.n_processed - processed} keyframes processed in the profile phase")
 
-    path_launches = {"main": launches, "relocalization": reloc["launches"], "loop": loop_launches}
-    path_frames = {"main": N_FRAMES, "relocalization": N_BLACK + 1 + len(RESUMED), "loop": loop["frames"]}
+    path_launches = {"main": launches, "relocalization": reloc["launches"], "loop": loop_launches,
+                     "mono": mono_launches}
+    path_frames = {"main": N_FRAMES, "relocalization": N_BLACK + 1 + len(RESUMED), "loop": loop["frames"],
+                   "mono": N_MONO}
     for name, k in KERNELS.items():
         path = k.get("path", "main")
         check(path_launches[path][name] > 0, f"kernel {name} was not launched on the {path} path")
@@ -1331,6 +1800,11 @@ def main():
           f"{worst:.2e} m")
     check(worst < 0.01, f"cuda and cpu poses differ by {worst} m")
     threaded = run_threaded(cfg, frames, poses_gt)
+    phase_done("profiling, localization, cpu path and threaded slice", t0, times)
+    mono_loop, circuit, lap = run_mono_loop(times)
+    threaded_loop = run_threaded_loop(circuit, lap, times)
+    times["total"] = time.perf_counter() - t_main
+    print(f"phase times (s): {times}")
 
     check(not DEFERRED, f"{len(DEFERRED)} deferred check(s) failed: {DEFERRED}")
     print(json.dumps({"slice": {
@@ -1338,7 +1812,9 @@ def main():
         "ms_per_frame_p50": statistics.median(steady), "ms_per_frame_max": max(steady),
         **mapping, "threaded": threaded, "card": smi,
     }, "relocalization": {k: v for k, v in reloc.items() if k != "launches"},
-        "localization": {k: v for k, v in localization.items() if k != "launches"}, "loop": loop}))
+        "localization": {k: v for k, v in localization.items() if k != "launches"}, "loop": loop,
+        "mlpnp_relocalization": mlpnp_reloc, "undistortion": undistortion, "mono": mono, "mono_loop": mono_loop,
+        "threaded_loop": threaded_loop, "phase_seconds": times}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-from . import camera, se3, sim3  # noqa: F401
+from . import camera, se3, sim3, triangulation  # noqa: F401

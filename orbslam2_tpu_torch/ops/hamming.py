@@ -8,7 +8,8 @@ arithmetic shift of a negative int32 is ever taken).
 
 K3 (`csrc/hamming_best2.cu`) is the matchers' masked best and second-best
 candidate per row, never materialising the [N, M] distances. It has six
-modes: `best2` takes a bool [N, M] mask (search_by_bow, epipolar_match);
+modes: `best2` takes a bool [N, M] mask (search_by_bow, epipolar_match,
+the monocular initialization matching);
 `best2_gated` takes a `Gate`, the geometric gate of one of the three
 tracking matchers or of fuse_match, or the FeatureVector-node gate of
 search_by_bow_nodes, as per-row and per-column vectors, and on a CUDA
@@ -312,8 +313,9 @@ def _count(counts: dict, key: str, launched: bool):
 def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "search_by_bow"):
     """K3 in mask mode: the plain version for CPU tensors, one launch of
     `hamming_best2_launch` for CUDA tensors, counted under `caller` (the
-    tracker's search_by_bow, the mapper's epipolar_match, or the
-    relocalizer's search_by_bow). A row with no
+    tracker's search_by_bow, the mapper's epipolar_match, the
+    relocalizer's search_by_bow, or the monocular tracker's initialization
+    matching, `mono_init`). A row with no
     candidate, and every row when M == 0, answers (0, 256, 0, 256)."""
     if A.device.type == "cpu":
         return best2_plain(A, B, mask)
@@ -328,7 +330,7 @@ def best2(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor, caller: str = "s
 
 
 #: launches per caller
-best2.launches = {"search_by_bow": 0, "epipolar_match": 0, "relocalization": 0}
+best2.launches = {"search_by_bow": 0, "epipolar_match": 0, "relocalization": 0, "mono_init": 0}
 
 
 def best2_gated(A: torch.Tensor, B: torch.Tensor, g: Gate, caller: Optional[str] = None):

@@ -3,9 +3,12 @@
 Port of orbslam2_tpu/slam/frontend.py (reference Frame construction,
 src/Frame.cpp:98-135). `Frontend.features_body` takes the stereo pair as
 one [2, H, W] float32 tensor on the frontend's device and returns the
-left eye's `FrameFeatures` with stereo depth. Rectified stereo only: a
-configuration with lens distortion (the monocular path's undistortion)
-is not ported yet.
+left eye's `FrameFeatures` with stereo depth; `features_mono` takes one
+image [1, H, W] (K1 and K2 launched with one image) and returns its
+features with no depth. With a distortion coefficient in the camera, the
+keypoints are undistorted (`ops/undistort.py`, reference
+Frame::UndistortKeyPoints) after stereo matching, which works on the
+rectified pair's raw coordinates, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 from .. import convert
 from ..config import SlamConfig
 from ..geometry import camera as camera_mod
-from ..ops import matchers, orb
+from ..ops import matchers, orb, undistort
 
 
 class FrameFeatures(NamedTuple):
@@ -40,11 +43,11 @@ class Frontend:
         self.config = config
         self.device = torch.device(device)
         cc = c.camera
-        if any(abs(x) > 0 for x in (cc.k1, cc.k2, cc.p1, cc.p2, cc.k3)):
-            raise NotImplementedError(
-                "keypoint undistortion is not ported yet "
-                "(ROADMAP queue 1: monocular/MLPnP/undistort)"
-            )
+        self._cc = cc
+        #: keypoint undistortion (reference Frame.cpp:471-503): only with a
+        #: distortion coefficient (raw monocular cameras); rectified stereo
+        #: has none
+        self.has_distortion = any(abs(x) > 0 for x in (cc.k1, cc.k2, cc.p1, cc.p2, cc.k3))
         self.orb_params = orb.OrbParams(
             n_features=c.orb.n_features,
             n_levels=c.orb.n_levels,
@@ -73,15 +76,36 @@ class Frontend:
             self.scale_factors, bf=self._bf, min_z=self._baseline,
         )
         return FrameFeatures(
-            uv=f.uv[0], octave=f.octave[0], angle=f.angle[0],
+            uv=self._undistort(f.uv[0]), octave=f.octave[0], angle=f.angle[0],
             response=f.response[0], desc=f.desc[0], valid=f.valid[0],
             u_right=sm.u_right, depth=sm.depth,
         )
+
+    def features_mono(self, image: torch.Tensor) -> FrameFeatures:
+        """ORB extraction of one image [1, H, W] float32 on the frontend's
+        device; u_right and depth are -1."""
+        f = orb.extract(image, self.orb_params)
+        no_stereo = torch.full_like(f.response[0], -1.0)
+        return FrameFeatures(
+            uv=self._undistort(f.uv[0]), octave=f.octave[0], angle=f.angle[0],
+            response=f.response[0], desc=f.desc[0], valid=f.valid[0],
+            u_right=no_stereo, depth=no_stereo,
+        )
+
+    def _undistort(self, uv: torch.Tensor) -> torch.Tensor:
+        if not self.has_distortion:
+            return uv
+        cc = self._cc
+        return undistort.undistort_points(uv, cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2, cc.p1, cc.p2, cc.k3)
 
     def process(self, im_left, im_right) -> FrameFeatures:
         """Stereo pair (numpy arrays) -> FrameFeatures on the device."""
         pair = torch.from_numpy(np.stack([np.asarray(im) for im in (im_left, im_right)]))
         return self.features_body(pair.to(self.device, torch.float32))
+
+    def process_mono(self, image) -> FrameFeatures:
+        """One image (numpy array) -> FrameFeatures on the device."""
+        return self.features_mono(torch.from_numpy(np.asarray(image)[None]).to(self.device, torch.float32))
 
 
 class FrameHost:

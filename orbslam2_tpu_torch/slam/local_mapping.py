@@ -2,7 +2,10 @@
 keyframe culling.
 
 Port of orbslam2_tpu/slam/local_mapping.py (reference src/LocalMapping.cpp)
-for the stereo sensor. `insert_keyframe` queues a keyframe; processing it
+for the stereo and the monocular sensor (mono: culling by 2 observations,
+20 neighbours for triangulation with the baseline / median scene depth
+rule, every point counted in keyframe culling). `insert_keyframe` queues a
+keyframe; processing it
 runs the steps of the reference's mapping thread: map-point culling, new
 points triangulated against the covisible keyframes, duplicate fusion,
 local bundle adjustment, keyframe culling. Every stage assembles under the
@@ -185,7 +188,7 @@ class LocalMapper:
         found = m.pt_found[pids]
         visible = np.maximum(m.pt_visible[pids], 1)
         age = kf - m.pt_first_kf_id[pids]
-        th_obs = 3  # stereo (2 for monocular)
+        th_obs = 2 if self.config.monocular else 3
         remove = (found / visible < 0.25) | ((age >= 2) & (m.pt_nobs[pids] <= th_obs))
         for pid in pids[remove]:
             m.remove_point(int(pid))
@@ -320,9 +323,17 @@ class LocalMapper:
             free1 = f1.valid & (self.map.kf_point[kf1] < 0)
             stereo1 = f1.u_right >= 0
             active = []
-            for kf2 in self.map.covisible_keyframes(kf1, 10):
+            mono = self.config.monocular
+            for kf2 in self.map.covisible_keyframes(kf1, 20 if mono else 10):
                 O2 = self.map.kf_center(kf2)
-                if np.linalg.norm(O2 - O1) < self.config.baseline:  # LocalMapping.cpp:232-239
+                baseline = np.linalg.norm(O2 - O1)
+                if mono:
+                    # baseline / median scene depth: skip a neighbour with
+                    # next to no parallax (upstream LocalMapping.cpp)
+                    med = self._median_scene_depth(kf2)
+                    if med <= 0 or baseline / med < 0.01:
+                        continue
+                elif baseline < self.config.baseline:  # LocalMapping.cpp:232-239
                     continue
                 f2 = self.map.kf_frame[kf2]
                 T2 = self.map.kf_pose[kf2].astype(np.float64).copy()
@@ -374,6 +385,16 @@ class LocalMapper:
                 self.recent_points.extend(created)
                 m.update_normals_batch(created)
                 self.n_created += len(created)
+
+    def _median_scene_depth(self, kf: int) -> float:
+        """KeyFrame::ComputeSceneMedianDepth: the median depth of the
+        keyframe's points in its camera, -1 without points."""
+        T = self.map.kf_pose[kf].astype(np.float64)
+        pids = self.map.kf_point[kf]
+        ok = self.map.valid_mask(pids)
+        if not ok.any():
+            return -1.0
+        return float(np.median(self.map.pt_pos[pids[ok]] @ T[2, :3] + T[2, 3]))
 
     def _commit_triangulated(self, kf1, kf2, a_idx, b_idx, x3d):
         """Allocate and register new points (the caller holds the map lock
@@ -631,7 +652,7 @@ class LocalMapper:
 
     def _cull_keyframes(self, kf: int):
         """Reference LocalMapping::KeyFrameCulling (LocalMapping.cpp:609-670):
-        a local keyframe is redundant if > 90% of its close points are seen
+        a local keyframe is redundant if > 90% of its (stereo: close) points are seen
         by >= 3 other keyframes at the same or a finer scale. Queued
         keyframes are never culled (the tracker links a keyframe at
         creation, so culling one before its own pass would drop its
@@ -643,8 +664,10 @@ class LocalMapper:
                 continue
             f = m.kf_frame[k]
             pids = m.kf_point[k]
-            # stereo rule: only close points count (LocalMapping.cpp:628-631)
-            counted = m.valid_mask(pids) & (f.depth <= self.config.depth_threshold) & (f.depth >= 0)
+            counted = m.valid_mask(pids)
+            if not self.config.monocular:
+                # stereo rule: only close points count (LocalMapping.cpp:628-631)
+                counted &= (f.depth <= self.config.depth_threshold) & (f.depth >= 0)
             n_pts = int(counted.sum())
             if n_pts == 0:
                 continue

@@ -1,9 +1,14 @@
 """Loop closing: detection, Sim3 computation, loop correction, global BA.
 
 Port of orbslam2_tpu/slam/loop_closing.py (reference src/LoopClosing.cpp)
-for the stereo sensor, synchronous: `insert_keyframe` runs on the thread
-that processed the keyframe (the mapper, inline in `track_stereo`), and
-the global BA runs inline after each correction.
+for the stereo and the monocular sensor (`fix_scale=False`: the Sim3
+RANSAC, the Sim3 LM and the essential graph solve the scale too).
+`insert_keyframe` runs on the thread that processed the keyframe (the
+mapper, inline in `track_stereo`), or on a `pipeline.LoopWorker` thread
+when the System is threaded. The global BA runs inline after each
+correction, or with `threaded_gba` on a thread of its own (reference
+LoopClosing.cpp:566-570), which a newer correction aborts and joins
+first (:397-409); an aborted solve is discarded.
 
   * DetectLoop (:90-216): the keyframe database's loop candidates above
     the worst covisible BoW score, then 3-consecutive-keyframe group
@@ -22,8 +27,7 @@ the global BA runs inline after each correction.
 
 Host map admin is numpy under the map lock; matching and solving run on
 the device without it, as in the JAX package. Not ported here: the device
-mesh (`mesh`, `_dist_*`), the threaded global BA and the `LoopWorker`
-(ROADMAP queue 1 item 1(b)). The JAX package's fixed shapes go: tables are
+mesh (`mesh`, `_dist_*`). The JAX package's fixed shapes go: tables are
 uploaded at their true length, and every consistent candidate is matched
 (its fixed-shape path keeps 8). Two faults of the JAX package are not
 carried: loop fusion sizes its rows from the frustum selection (the JAX
@@ -35,6 +39,8 @@ package skips it).
 from __future__ import annotations
 
 import contextlib
+import threading
+import time
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -105,6 +111,16 @@ class LoopCloser:
         #: one record per closed loop: the keyframe, its candidate, the
         #: counts at each gate, and the sizes of its correction's problems
         self.loops: List[Dict] = []
+        #: (start, end) monotonic seconds of each correction, the global BA
+        #: excluded (frames that complete inside one overlapped it)
+        self.correction_windows: List[Tuple[float, float]] = []
+        #: the global BA on a thread of its own (set by a threaded System;
+        #: inline otherwise, so that a caller sees the settled map on return)
+        self.threaded_gba = False
+        self._gba_thread: Optional[threading.Thread] = None
+        self._gba_stop = False
+        #: global BAs discarded because a newer correction aborted them
+        self.n_gba_aborted = 0
 
     # ------------------------------------------------------------------
 
@@ -121,7 +137,9 @@ class LoopCloser:
 
     def reset(self):
         """Forget the loop state (reference LoopClosing::ResetIfRequested):
-        keyframe ids restart with the map."""
+        keyframe ids restart with the map. A running global BA is aborted
+        and joined first."""
+        self._abort_gba_and_join()
         self.consistent_groups = []
         self.rejections = []
         self._candidates = []
@@ -346,7 +364,7 @@ class LoopCloser:
         self._matched_points = dict(matched)
         for i, pid in matches.items():
             self._matched_points.setdefault(i, pid)
-        self.loops.append(dict(kf=kf, cand=cand, **counts))
+        self.loops.append(dict(kf=kf, cand=cand, s12=s12, **counts))
         return True
 
     def _search_by_sim3(self, kf1: int, kf2: int, S12: Sim3Np) -> Dict[int, int]:
@@ -459,6 +477,10 @@ class LoopCloser:
         stop request is honoured between keyframes (a mapping worker
         finishes the keyframe in flight first)."""
         m = self.map
+        t0 = time.monotonic()
+        # a global BA of an earlier loop may still run: abort and join it
+        # (reference LoopClosing.cpp:397-409, the mbStopGBA protocol)
+        self._abort_gba_and_join()
         if self.local_mapper is not None:
             # reference RequestStop + isStopped wait (LoopClosing.cpp:394-415)
             self.local_mapper.request_stop()
@@ -477,7 +499,43 @@ class LoopCloser:
         self.last_loop_kf = kf
         with self.lock:
             m.big_change_idx += 1  # MapChanged() (reference Map.cpp:42-52)
+        self.correction_windows.append((t0, time.monotonic()))
         self.n_loops_closed += 1
+        self._start_gba(kf)
+
+    def _start_gba(self, kf: int):
+        """The global BA: on a thread of its own with `threaded_gba`, so that
+        the loop worker goes on with the next keyframes (reference
+        LoopClosing.cpp:566-570); inline otherwise."""
+        if self.threaded_gba:
+            self._gba_stop = False
+            self._gba_thread = threading.Thread(target=self._run_gba, args=(kf,), name="gba-thread",
+                                                daemon=True)
+            self._gba_thread.start()
+        else:
+            self._run_gba(kf)
+
+    def _abort_gba_and_join(self, timeout: float = 300.0):
+        """Stop a running global BA (its solve polls `_gba_stop` between
+        chunks of iterations) and wait for its thread."""
+        t = self._gba_thread
+        if t is not None and t.is_alive():
+            self._gba_stop = True
+            t.join(timeout)
+        self._gba_thread = None
+
+    def gba_running(self) -> bool:
+        t = self._gba_thread
+        return t is not None and t.is_alive()
+
+    def wait_gba(self, timeout: float = 600.0):
+        """Block until a global BA on its own thread has been applied (or
+        discarded)."""
+        t = self._gba_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+
+    def _run_gba(self, kf: int):
         with self._span("Global BA"):
             self._global_ba(kf)
 
@@ -739,12 +797,15 @@ class LoopCloser:
 
     def _global_ba(self, kf: int):
         """Full-map BA (reference RunGlobalBundleAdjustment, LoopClosing.
-        cpp:607-758), inline: the problem assembled from the map under the
-        lock, solved on the device without it (10 + 15 LM iterations, 40
-        PCG steps: the JAX package's schedule), applied under the lock with
-        spanning-tree propagation to whatever the tracker added meanwhile."""
+        cpp:607-758): the problem assembled from the map under the lock,
+        solved on the device without it (10 + 15 LM iterations, 40 PCG
+        steps: the JAX package's schedule; the solve polls `_gba_stop`),
+        applied under the lock with spanning-tree propagation to whatever
+        the tracker added meanwhile, or discarded if it was aborted."""
         m = self.map
-        with self.lock:
+        if not self._lock_unless_stopped():
+            return
+        try:
             kfs = sorted(m.kf_valid)
             pts = [int(p) for p in m.pt_ids()]
             if len(kfs) < 2 or len(pts) < 10:
@@ -752,20 +813,40 @@ class LoopCloser:
             kf_index = {k: i for i, k in enumerate(kfs)}
             pt_index = {p: i for i, p in enumerate(pts)}
             prob, meta = assemble_pm_problem(m, self.frontend, kfs, pts, kf_index, pt_index, kfs)
+        finally:
+            self.lock.release()
         if prob is None:
             return
         self._note(gba_keyframes=len(kfs), gba_points=len(pts), gba_edges=int(prob.edge_valid.sum()))
         res = ba.ba_solve_pm_interruptible(convert.ba_problem_pm_to_torch(prob, self.device), self._cam,
-                                           n_iters_first=10, n_iters_second=15, sync_every=5, n_cg=40)
-        with self.lock, self._span("Graph update"):
-            self._apply_gba_staged(res, meta, kfs, pts)
+                                           n_iters_first=10, n_iters_second=15, sync_every=5, n_cg=40,
+                                           should_abort=lambda: self._gba_stop)
+        if self._gba_stop or not self._lock_unless_stopped():
+            # aborted by a newer correction or a reset: discarded (the
+            # reference returns without updating, LoopClosing.cpp:641-654)
+            self.n_gba_aborted += 1
+            return
+        try:
+            with self._span("Graph update"):
+                self._apply_gba_staged(res, meta, kfs, pts)
+        finally:
+            self.lock.release()
+
+    def _lock_unless_stopped(self) -> bool:
+        """Take the map lock, unless the global BA is stopped while it waits
+        (then False): the tracker's early-loss reset stops and joins the
+        global BA's thread while it holds the lock."""
+        while not self.lock.acquire(timeout=0.01):
+            if self._gba_stop:
+                return False
+        return True
 
     def _apply_gba_staged(self, res, meta, solved_kfs, solved_pts):
         """Apply the global BA and propagate it to the state created during
         the solve (reference LoopClosing.cpp:673-733): a new keyframe moves
         with its spanning-tree parent, a new point with its reference
-        keyframe. Inline, nothing was created meanwhile; the propagation is
-        kept for the reference's protocol."""
+        keyframe. Inline, nothing was created meanwhile; on its own thread
+        the tracker and the mapper went on during the solve."""
         m = self.map
         solved_set = set(solved_kfs)
         pre = {k: m.kf_pose[k].astype(np.float64).copy() for k in m.kf_pose}

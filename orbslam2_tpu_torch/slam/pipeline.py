@@ -4,8 +4,8 @@ This file is a copy of orbslam2_tpu/slam/pipeline.py, which imports no
 JAX; the port carries its own so that it imports nothing of the JAX
 package, and tests/test_torch_imports.py holds the two equal below their
 docstrings. `System(threaded=True)` runs the local mapper on a
-`MappingWorker` thread (reference src/System.cpp:63-65); `LoopWorker`
-waits for loop closing, which is not ported yet.
+`MappingWorker` thread (reference src/System.cpp:63-65) and, with loop
+closing, the loop closer on a `LoopWorker` thread (:66-70).
 
 The synchronization fabric is the single map-update lock (reference
 mMutexMapUpdate, Tracking.cpp:260) plus the convention that long device

@@ -15,8 +15,12 @@ hypotheses, `pose_opt.pose_optimize` per refinement and K3 `frame` per
 widening pass. Keyframes are indexed as the mapper finishes them: one K4
 launch each.
 
-The JAX package's MLPnP variant (`solver="mlpnp"`, its sequential
-per-candidate path) is not ported yet and raises. The JAX package's
+With `solver="mlpnp"` (BASELINE config 4) an attempt takes the JAX
+package's sequential path instead: the first 5 candidates one by one, BoW
+matching (K3 `mask`, caller `relocalization`), collisions resolved by
+distance on the host, then `ops.mlpnp.mlpnp_ransac` (128 hypotheses of 6
+points) on the bearings with the angular gate sqrt(5.991 sigma^2) / fx,
+>= 10 inliers, and the same optimize-and-widen passes. The JAX package's
 padded shapes (`padto`, `ShapePolicy.bucket`) are not ported: every array
 has its true length; the candidate count stays 5 (`CANDIDATES`).
 """
@@ -28,7 +32,7 @@ import torch
 
 from .. import convert
 from ..config import SlamConfig
-from ..ops import hamming, matchers, pnp, pose_opt
+from ..ops import hamming, matchers, mlpnp, pnp, pose_opt
 from ..vocab import bow as bow_mod
 from ..vocab.database import KeyFrameDatabase
 from .frontend import FrameHost, Frontend
@@ -50,11 +54,7 @@ class Relocalizer:
         vocab: bow_mod.Vocabulary,
         solver: str = "epnp",
     ):
-        if solver == "mlpnp":
-            raise NotImplementedError(
-                "relocalization with MLPnP is not ported yet (ROADMAP queue 1: monocular/MLPnP/undistort)"
-            )
-        if solver != "epnp":
+        if solver not in ("epnp", "mlpnp"):
             raise ValueError(f"unknown relocalization solver {solver!r}")
         self.config = config
         self.frontend = frontend
@@ -123,7 +123,10 @@ class Relocalizer:
         if not candidates:
             rec["stage"] = "db_candidates"
             return False
-        ok = self._relocalize_batched(frame, candidates, rec)
+        if self.solver == "mlpnp":
+            ok = self._relocalize_sequential(frame, candidates, rec)
+        else:
+            ok = self._relocalize_batched(frame, candidates, rec)
         rec["ok"] = bool(ok)
         return ok
 
@@ -197,6 +200,72 @@ class Relocalizer:
                 return True
             crec["stage"] = "widen"
         return False
+
+    def _relocalize_sequential(self, frame: FrameHost, candidates, rec) -> bool:
+        """The MLPnP path (the JAX package's `_relocalize_sequential`): the
+        first CANDIDATES candidates in turn, each through BoW matching (>=
+        15), MLPnP RANSAC on the bearings (>= 10 inliers), pose
+        optimization and the widening passes (>= 50 accepts)."""
+        cam = self.config.camera
+        sigma2 = self.frontend.level_sigma2
+        t = self._tensor
+        bearings = mlpnp.bearings_from_pixels(frame.dev.uv, cam.fx, cam.fy, cam.cx, cam.cy)
+        # the angular gate equivalent to the pixel chi2 gate
+        cos_th = t(np.cos(np.sqrt(5.991 * sigma2[frame.octave]) / cam.fx).astype(np.float32))
+        for kf in candidates[:CANDIDATES]:
+            if kf not in self.map.kf_valid:
+                continue
+            pids = self._bow_match_keyframe(frame, kf)
+            n_matches = int((pids >= 0).sum())
+            crec = {"kf": int(kf), "n_bow": n_matches}
+            rec["cands"].append(crec)
+            if n_matches < 15:
+                crec["stage"] = "bow"
+                continue
+            N = len(pids)
+            pw = np.zeros((N, 3), np.float32)
+            valid = (pids >= 0) & self.map.valid_mask(pids)
+            pw[valid] = self.map.pt_pos[pids[valid]]
+            res = mlpnp.mlpnp_ransac(t(pw), bearings, t(valid), cos_th, self.generator)
+            crec["n_pnp"] = int(res.n_inliers)
+            if crec["n_pnp"] < 10:
+                crec["stage"] = "pnp"
+                continue
+            frame.Tcw = res.Tcw.cpu().numpy().astype(np.float32)
+            frame.point_ids[:] = np.where(res.inliers.cpu().numpy() & valid, pids, -1)
+            n_good = self._optimize(frame)
+            crec["n_opt"] = int(n_good)
+            if n_good < 10:
+                crec["stage"] = "pose_opt"
+                continue
+            if n_good < 50:
+                n_good = self._widen(frame, kf, th=10.0, orb_dist=100)
+                if 30 <= n_good < 50:
+                    n_good = self._widen(frame, kf, th=3.0, orb_dist=64)
+            crec["n_widen"] = int(n_good)
+            if n_good >= 50:
+                crec["stage"] = "accepted"
+                return True
+            crec["stage"] = "widen"
+        return False
+
+    def _bow_match_keyframe(self, frame: FrameHost, kf: int) -> np.ndarray:
+        """SearchByBoW(KF, Frame) (ratio 0.75, rotation check), K3 `mask`
+        under the caller `relocalization`; frame-keypoint collisions go to
+        the best distance, as in the batched path. Returns the matched map
+        point per keypoint (-1 none)."""
+        kff = self.map.kf_frame[kf]
+        kf_pids = self.map.kf_point[kf]
+        has_pt = (kf_pids >= 0) & self.map.valid_mask(kf_pids)
+        desc = np.zeros((len(kf_pids), 8), np.uint32)
+        desc[has_pt] = self.map.pt_desc[kf_pids[has_pt]]
+        fd = frame.dev
+        idx, best, keep = matchers.search_by_bow(convert.desc_to_torch(desc, self.device), self._tensor(has_pt),
+                                                 kff.dev.angle, fd.desc, fd.valid, fd.angle, 0.75,
+                                                 caller="relocalization")
+        src, _ = matchers._resolve_collisions(idx, torch.where(keep, best, hamming.MAX_DIST), len(frame.valid))
+        src = src.cpu().numpy()
+        return np.where(src >= 0, kf_pids[np.clip(src, 0, None)], -1)
 
     # ------------------------------------------------------------------
 

@@ -1,26 +1,30 @@
-"""System facade: the public API of the SLAM engine (stereo tracking,
-local mapping, relocalization and localization mode, loop closing).
+"""System facade: the public API of the SLAM engine (stereo and
+monocular tracking, local mapping, relocalization and localization mode,
+loop closing).
 
 Port of orbslam2_tpu/slam/system.py (reference include/System.hpp:55-117,
 src/System.cpp): construction wires the stages (vocabulary and keyframe
-database, tracking, local mapping, loop closing), `track_stereo` is the per-frame
-entry, plus localization-mode switching, reset, wait_idle, shutdown with
-the stage-timing report, and the four trajectory savers.
+database, tracking, local mapping, loop closing), `track_stereo` and
+`track_monocular` are the per-frame entries (the sensor chosen at
+construction), plus localization-mode switching, reset, wait_idle,
+shutdown with the stage-timing report, and the four trajectory savers.
 
-The local mapper processes each keyframe inline in `track_stereo`, one
+The local mapper processes each keyframe inline in the tracking call, one
 queued keyframe per frame with `deferred_mapping=True`, or on a worker
 thread with `threaded=True` (reference System.cpp:63-65). With a
 vocabulary, a `Relocalizer` indexes every keyframe the mapper finishes
 and brings a lost tracker back; without one a lost tracker stays lost.
 With a vocabulary and `enable_loop_closing=True` (the default), a
 `LoopCloser` takes each keyframe the mapper finishes, indexes it, looks
-for a loop, corrects it and runs the global BA, all synchronously, on the
-thread that mapped the keyframe. Loop closing on its own thread (with
-`threaded=True`) is not ported yet and raises, as do the other unported
-parts (a viewer, a device mesh, the monocular sensor), each naming its
-ROADMAP item.
+for a loop, corrects it and runs the global BA: synchronously on the
+thread that mapped the keyframe, or, with `threaded=True`, on a
+`LoopWorker` thread, with each global BA on a thread of its own (reference
+System.cpp:66-70, LoopClosing.cpp:566-570). A monocular System closes
+loops with a free scale (Sim3, `fix_scale=False`). A viewer and a device
+mesh are not ported yet and raise, naming their ROADMAP item.
 
     system = System("assets/vocab_generic.npz", cfg)
+    system = System("assets/vocab_generic.npz", cfg, sensor=Sensor.MONOCULAR)
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .frontend import Frontend
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
 from .map import SlamMap
-from .pipeline import MappingWorker
+from .pipeline import LoopWorker, MappingWorker
 from .timing import StageTimers
 from .relocalization import Relocalizer
 from .tracking import Tracker, TrackingState
@@ -65,11 +69,8 @@ class System:
         *,
         device="cuda",
     ):
-        if vocabulary is not None and enable_loop_closing and threaded:
-            raise _not_ported("loop closing on its own thread (threaded=True)",
-                              "loop closing, item 1(b): LoopWorker and global BA on its own thread")
-        if sensor == Sensor.MONOCULAR:
-            raise _not_ported("the monocular sensor", "monocular/MLPnP/undistort")
+        if sensor not in (Sensor.STEREO, Sensor.MONOCULAR):
+            raise ValueError(f"unknown sensor {sensor!r}")
         if use_viewer:
             raise _not_ported("the viewer", "checkpoint/viewer/drivers")
         if mesh is not None:
@@ -81,7 +82,7 @@ class System:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.config = settings if isinstance(settings, SlamConfig) else load_config(settings)
-        self.config.sensor = "stereo"
+        self.config.sensor = sensor
 
         self.frontend = Frontend(self.config, self.device)
         self.map = SlamMap(
@@ -101,7 +102,8 @@ class System:
             self.map.on_keyframe_removed = reloc.remove_keyframe
             if enable_loop_closing:
                 self.loop_closer = LoopCloser(self.config, self.frontend, self.map, reloc,
-                                              local_mapper=self.local_mapper)
+                                              local_mapper=self.local_mapper,
+                                              fix_scale=(sensor != Sensor.MONOCULAR))
                 self.local_mapper.on_processed = self.loop_closer.insert_keyframe
                 self.loop_closer.on_pose_jump = self.tracker.apply_pose_jump
             else:
@@ -115,9 +117,16 @@ class System:
         self.local_mapper.timers = self.timers
         if self.loop_closer is not None:
             self.loop_closer.timers = self.timers
-        # threaded: the mapper drains its queue on a worker thread, and the
-        # tracker only ever waits on the map lock, never on a BA solve
+        # threaded: the mapper and the loop closer each drain their queue on
+        # a worker thread, and the global BA runs on a thread of its own
+        # (reference System.cpp:63-70); the tracker only ever waits on the
+        # map lock, never on a BA solve or a Sim3 search
         self.worker = MappingWorker(self.local_mapper) if threaded else None
+        self.loop_worker = None
+        if threaded and self.loop_closer is not None:
+            self.loop_worker = LoopWorker(self.loop_closer)
+            self.local_mapper.on_processed = self.loop_worker.submit
+            self.loop_closer.threaded_gba = True
 
     def _load_vocabulary(self, vocabulary):
         if vocabulary is None:
@@ -136,6 +145,14 @@ class System:
         with self.timers.span("Total tracking"):
             return self.tracker.track(im_left, im_right, timestamp)
 
+    def track_monocular(self, image, timestamp: float):
+        """Monocular per-frame entry (upstream System::TrackMonocular): the
+        first frames go to the two-view initializer. Returns the frame's
+        solved Tcw [4,4] (up to the map's scale), or None when tracking is
+        lost or not initialized yet."""
+        with self.timers.span("Total tracking"):
+            return self.tracker.track_mono(image, timestamp)
+
     def activate_localization_mode(self):
         """Reference ActivateLocalizationMode: mapping paused, tracking only."""
         self.tracker.only_tracking = True
@@ -148,29 +165,45 @@ class System:
     def reset(self):
         """Full reset (reference Tracking::Reset, Tracking.cpp:1348-1388):
         the map, the tracker, the mapper's queue and recent points, the
-        keyframe database, the loop state. The tracker's early-loss reset
-        comes here too."""
+        keyframe database, the loop worker's queue and the loop state (a
+        running global BA is stopped and joined). The tracker's early-loss
+        reset comes here too."""
+        if self.loop_worker is not None:
+            with self.loop_worker._cv:
+                self.loop_worker._queue.clear()
+        if self.loop_closer is not None:
+            self.loop_closer.reset()
         self.tracker.reset()
         self.local_mapper.recent_points = []
         self.local_mapper._queue.clear()
         if self.relocalizer is not None:
             self.relocalizer.database.clear()
-        if self.loop_closer is not None:
-            self.loop_closer.reset()
 
     def wait_idle(self, timeout: float = 120.0):
-        """Block until the mapping worker has drained its queue (no-op
-        unless threaded); raises the worker's error, if it had one."""
+        """Block until the queued mapping and loop-closing work is done: the
+        mapping worker, then the loop worker and its global BA, then the
+        mapping worker again (a correction releases the mapper). A no-op
+        unless threaded; raises a worker's error, if it had one."""
         if self.worker is not None:
             self.worker.wait_idle(timeout)
+        if self.loop_worker is not None:
+            self.loop_worker.wait_idle(timeout)
+            self.loop_closer.wait_gba(timeout)
+            if self.worker is not None:
+                self.worker.wait_idle(timeout)
 
     def shutdown(self) -> str:
-        """Drain and stop the mapping worker (reference Shutdown barrier,
-        System.cpp:227-242) and return the stage-timing report
-        (System.cpp:244)."""
+        """Drain and stop the mapping and loop workers, wait for a global BA
+        on its own thread (reference Shutdown barrier, System.cpp:227-242),
+        and return the stage-timing report (System.cpp:244)."""
         if self.worker is not None:
             self.worker.finish()
             self.worker = None
+        if self.loop_worker is not None:
+            self.loop_worker.finish()
+            self.loop_worker = None
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()
         return self.timers.report()
 
     # ------------------------------------------------------------------

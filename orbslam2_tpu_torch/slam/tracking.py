@@ -1,4 +1,4 @@
-"""Tracking front end: the per-frame state machine (stereo).
+"""Tracking front end: the per-frame state machine (stereo and monocular).
 
 Port of orbslam2_tpu/slam/tracking.py (reference src/Tracking.cpp:248-524):
 stereo initialization, the steady-state fused frame step (`_full_step`:
@@ -15,8 +15,15 @@ correction (`apply_pose_jump`) and trajectory bookkeeping. Host code is
 control flow and map admin in numpy; matching and optimization run on the
 tracker's device.
 
-Not ported yet: pipelined tracking (not to be ported) and the monocular
-paths.
+Monocular (`track_mono`, the config's sensor "monocular"): the two-view
+initialization (a reference frame with > 100 keypoints, then the first
+frame with >= 100 initialization matches that `ops/initializer.py`
+accepts; the initial map scaled to unit median depth, >= 50 points), then
+the unfused motion-model, reference-keyframe and local-map paths with the
+monocular thresholds (motion-model window 15, th_ref 0.9, no close-point
+rule) and keyframes without stereo points: the mapper triangulates them.
+The initialization matches go through K3 `mask` (caller `mono_init`). The
+JAX package's pipelined tracking is not ported (ROADMAP: do not port).
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from .. import convert
 from ..config import SlamConfig
-from ..ops import matchers, pose_opt
+from ..ops import hamming, initializer, matchers, pose_opt
 from .frontend import FrameHost, Frontend
 from .map import SlamMap
 
@@ -65,10 +72,6 @@ def _fetch(host: dict) -> dict:
 
 class Tracker:
     def __init__(self, config: SlamConfig, frontend: Frontend, slam_map: SlamMap):
-        if config.monocular:
-            raise NotImplementedError(
-                "monocular tracking is not ported yet (ROADMAP queue 1: monocular/MLPnP/undistort)"
-            )
         self.config = config
         self.frontend = frontend
         self.device = frontend.device
@@ -107,6 +110,8 @@ class Tracker:
         self._log_scale = float(np.log(config.orb.scale_factor))
         #: device-resident local-candidate cache: ids, device tensors, version
         self._cand_cache = None
+        #: monocular: the reference frame of the two-view initialization
+        self._init_ref: Optional[FrameHost] = None
 
     # ------------------------------------------------------------------
     # device steps
@@ -259,13 +264,15 @@ class Tracker:
 
     def _can_fuse(self) -> bool:
         """The fused step covers the steady-state stereo hot path; every
-        other state, localization mode (visual-odometry points) and
-        deferred mapping (which pumps the mapper between the steps) route
-        through the motion-model / reference-keyframe paths."""
+        other state, the monocular sensor, localization mode
+        (visual-odometry points) and deferred mapping (which pumps the
+        mapper between the steps) route through the motion-model /
+        reference-keyframe paths."""
         return (
             self.state == TrackingState.OK
             and self.velocity is not None
             and not self.only_tracking
+            and not self.config.monocular
             and self.frame_id >= self.last_reloc_frame_id + 2
             and not self._deferred_mapping()
             and len(self.local_points) > 0
@@ -302,10 +309,24 @@ class Tracker:
             self._track(frame)
         return frame.Tcw if self.state == TrackingState.OK else None
 
+    def track_mono(self, image, timestamp: float) -> Optional[np.ndarray]:
+        """Process one monocular frame (upstream GrabImageMonocular); returns
+        Tcw, or None when lost or not initialized yet."""
+        with self._span("ORB extraction"):
+            feats = self.frontend.process_mono(image)
+        frame = FrameHost(feats, timestamp, self.frame_id)
+        self.frame_id += 1
+        with self.map.lock:
+            self._track(frame)
+        return frame.Tcw if self.state == TrackingState.OK else None
+
     def _track(self, frame: FrameHost, fused=None):
         if self.state in (TrackingState.NO_IMAGES_YET, TrackingState.NOT_INITIALIZED):
             self.state = TrackingState.NOT_INITIALIZED
-            self._stereo_initialization(frame)
+            if self.config.monocular:
+                self._monocular_initialization(frame)
+            else:
+                self._stereo_initialization(frame)
             if self.state == TrackingState.OK:
                 self._record_trajectory(frame)
             self.last_frame = frame
@@ -385,6 +406,114 @@ class Tracker:
         self.local_points = self.map.pt_ids()
         if self.local_mapper is not None:
             self.local_mapper.insert_keyframe(kf)
+        self.state = TrackingState.OK
+
+    def _monocular_initialization(self, frame: FrameHost):
+        """Two-view bootstrap (upstream Tracking::MonocularInitialization):
+        a reference frame with > 100 keypoints, then per frame the
+        initialization matches against it (< 100 drops the reference) and
+        the two-view initializer on 200 hypotheses drawn from a CPU generator
+        seeded with the frame id (the JAX package's PRNGKey(frame id))."""
+        ref = self._init_ref
+        if ref is None:
+            if frame.n_keypoints > 100:
+                self._init_ref = frame
+            return
+        if frame.n_keypoints <= 100:
+            self._init_ref = None
+            return
+        matches = self._match_for_initialization(ref, frame)
+        if int((matches >= 0).sum()) < 100:
+            self._init_ref = None
+            return
+        N = self._N
+        valid = matches >= 0
+        uv1 = np.zeros((N, 2), np.float32)
+        uv2 = np.zeros((N, 2), np.float32)
+        uv1[valid] = ref.uv[valid]
+        uv2[valid] = frame.uv[matches[valid]]
+        # drawn on the CPU: the card initializes as the CPU path does (a CUDA
+        # generator draws other numbers from the same seed)
+        generator = torch.Generator().manual_seed(frame.frame_id)
+        res = initializer.initialize_two_view(self._tensor(uv1), self._tensor(uv2), self._tensor(valid),
+                                              self.cam, generator)
+        if not bool(res.success):
+            return
+        self._create_initial_map_monocular(ref, frame, matches, res)
+
+    def _match_for_initialization(self, ref: FrameHost, cur: FrameHost) -> np.ndarray:
+        """SearchForInitialization (ORBmatcher window 100, octave 0 on both
+        sides, ratio 0.9, rotation check): the gate built here, the best and
+        second best by K3 `mask` (caller `mono_init`), then the collisions
+        resolved by distance (the JAX package walks the rows in order of
+        distance; ties here go to the lowest row). Returns per reference
+        keypoint its index in cur (-1 none)."""
+        rd, cd = ref.dev, cur.dev
+        du = torch.abs(rd.uv[:, 0, None] - cd.uv[None, :, 0])
+        dv = torch.abs(rd.uv[:, 1, None] - cd.uv[None, :, 1])
+        octave0 = (rd.octave == 0)[:, None] & (cd.octave == 0)[None, :]
+        mask = (du <= 100) & (dv <= 100) & octave0 & rd.valid[:, None] & cd.valid[None, :]
+        idx, best, _, second = hamming.best2(rd.desc, cd.desc, mask, caller="mono_init")
+        ok = (best < hamming.TH_LOW) & (best < 0.9 * second)
+        keep = matchers.rotation_consistency_mask(rd.angle, cd.angle[idx.long()], ok)
+        # a current keypoint claimed twice goes to the best distance
+        src, _ = matchers._resolve_collisions(idx, torch.where(keep, best, hamming.MAX_DIST), cd.valid.shape[0])
+        src = src.cpu().numpy()
+        out = np.full(self._N, -1, np.int64)
+        out[src[src >= 0]] = np.nonzero(src >= 0)[0]
+        return out
+
+    def _create_initial_map_monocular(self, ref: FrameHost, frame: FrameHost, matches, res):
+        """CreateInitialMapMonocular: two keyframes, the triangulated points,
+        the map scaled to unit median depth; fewer than 50 points clear the
+        map and drop the reference."""
+        T21 = res.T21.cpu().numpy()
+        point_ok = res.point_ok.cpu().numpy()
+        X = res.points.cpu().numpy()
+        ref.Tcw = np.eye(4, dtype=np.float32)
+        frame.Tcw = T21.astype(np.float32)
+        m = self.map
+        kf1 = m.add_keyframe(ref, ref.Tcw)
+        kf2 = m.add_keyframe(frame, frame.Tcw)
+        created, depths = [], []
+        for i in np.nonzero((matches >= 0) & point_ok)[0]:
+            j = int(matches[i])
+            pid = m.add_point(X[i], kf1, ref.desc[i])
+            m.add_observation(pid, kf1, int(i))
+            m.add_observation(pid, kf2, j)
+            m.compute_distinctive_descriptor(pid)
+            ref.point_ids[i] = pid
+            frame.point_ids[j] = pid
+            created.append(pid)
+            depths.append(X[i][2])
+        m.kf_point[kf1] = ref.point_ids.copy()
+        m.kf_point[kf2] = frame.point_ids.copy()
+        m.update_connections(kf1)
+        m.update_connections(kf2)
+
+        # scale: unit median depth of the points in frame 1
+        med = float(np.median(depths)) if depths else 0.0
+        if med <= 0 or len(created) < 50:
+            m.clear()
+            self._init_ref = None
+            return
+        inv_med = 1.0 / med
+        frame.Tcw[:3, 3] *= inv_med
+        m.kf_pose[kf2] = frame.Tcw.copy()
+        for pid in created:
+            m.pt_pos[pid] = m.pt_pos[pid] * inv_med
+            m.update_normal_and_depth(pid)
+
+        m.keyframe_origins.append(kf1)
+        self.ref_kf = kf2
+        self.last_kf_id = frame.frame_id
+        self.local_keyframes = [kf1, kf2]
+        self.local_points = list(created)
+        if self.local_mapper is not None:
+            self.local_mapper.insert_keyframe(kf1)
+            self.local_mapper.insert_keyframe(kf2)
+        self.velocity = None
+        self._init_ref = None
         self.state = TrackingState.OK
 
     # ------------------------------------------------------------------
@@ -567,6 +696,7 @@ class Tracker:
         N = self._N
         T_pred = (self.velocity @ lf.Tcw).astype(np.float32)
         frame.Tcw = T_pred
+        th = 15.0 if self.config.monocular else 7.0  # reference Tracking.cpp:726-730
         pids = lf.point_ids.copy()
         has_pt = (pids >= 0) & self.map.valid_mask(pids)
         pw = np.zeros((N, 3), np.float64)
@@ -598,7 +728,7 @@ class Tracker:
 
         pfk, res = self._motion_step(
             frame.dev, self._tensor(pw.astype(np.float32)), self._tensor(has_pt), lf.dev.octave,
-            lf.dev.angle, convert.desc_to_torch(desc, self.device), self._tensor(T_pred), 7.0, fwd, bwd,
+            lf.dev.angle, convert.desc_to_torch(desc, self.device), self._tensor(T_pred), th, fwd, bwd,
         )
         pfk = pfk.cpu().numpy()
         frame.point_ids[:] = -1
@@ -816,16 +946,22 @@ class Tracker:
         n_ref_matches = self._tracked_in_keyframe(self.ref_kf, n_min_obs)
         idle = lm.accept_keyframes() if lm is not None else True
 
-        cc = getattr(frame, "_close_counts", None)
-        if cc is not None:  # computed on device by the fused step
-            tracked_close, non_tracked_close = cc
+        if self.config.monocular:
+            need_close = False
         else:
-            close = frame.valid & (frame.depth > 0) & (frame.depth < self.config.depth_threshold)
-            tracked_close = int((close & (frame.point_ids >= 0) & ~frame.outlier).sum())
-            non_tracked_close = int((close & ((frame.point_ids < 0) | frame.outlier)).sum())
-        need_close = (tracked_close < 100) and (non_tracked_close > 70)
+            cc = getattr(frame, "_close_counts", None)
+            if cc is not None:  # computed on device by the fused step
+                tracked_close, non_tracked_close = cc
+            else:
+                close = frame.valid & (frame.depth > 0) & (frame.depth < self.config.depth_threshold)
+                tracked_close = int((close & (frame.point_ids >= 0) & ~frame.outlier).sum())
+                non_tracked_close = int((close & ((frame.point_ids < 0) | frame.outlier)).sum())
+            need_close = (tracked_close < 100) and (non_tracked_close > 70)
 
-        th_ref = 0.4 if n_kfs < 2 else 0.75
+        if n_kfs < 2:
+            th_ref = 0.4
+        else:
+            th_ref = 0.9 if self.config.monocular else 0.75
         c1a = frame.frame_id >= self.last_kf_id + self.max_frames
         c1b = frame.frame_id >= self.last_kf_id + self.min_frames and idle
         c1c = self.n_inliers < n_ref_matches * 0.25 or need_close
@@ -855,6 +991,14 @@ class Tracker:
         ThDepth once 100 points exist."""
         kf = self.map.add_keyframe(frame, frame.Tcw)
         self.ref_kf = kf
+        if self.config.monocular:
+            # no stereo points: the mapper triangulates the keyframe's
+            # features (upstream CreateNewKeyFrame)
+            self.map.update_connections(kf)
+            if self.local_mapper is not None:
+                self.local_mapper.insert_keyframe(kf)
+            self.last_kf_id = frame.frame_id
+            return
         depth_ok = frame.valid & (frame.depth > 0)
         order = np.argsort(frame.depth[depth_ok])
         idxs = np.nonzero(depth_ok)[0][order]
@@ -919,6 +1063,7 @@ class Tracker:
 
     def reset(self):
         self.map.clear()
+        self._init_ref = None
         self.state = TrackingState.NO_IMAGES_YET
         self.velocity = None
         self.last_frame = None

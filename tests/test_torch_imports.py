@@ -37,6 +37,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "orbslam2_tpu_torch.slam.relocalization",
     "orbslam2_tpu_torch.geometry.sim3, orbslam2_tpu_torch.ops.sim3solve, orbslam2_tpu_torch.ops.posegraph, "
     "orbslam2_tpu_torch.slam.loop_closing",
+    "orbslam2_tpu_torch.ops.initializer, orbslam2_tpu_torch.ops.undistort, orbslam2_tpu_torch.ops.mlpnp, "
+    "orbslam2_tpu_torch.geometry.triangulation",
 ])
 def test_imports_without_jax(module):
     code = (

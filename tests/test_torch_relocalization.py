@@ -87,16 +87,24 @@ def test_vocabulary_files_match_jax(tmp_path):
 def test_unported_calls_raise():
     world = SyntheticWorld(n_points=50, seed=1, baseline=0.2)
     cfg = slam_config(world, torch_config)
-    # loop closing on its own thread is the next slice; inline it is wired
-    with pytest.raises(NotImplementedError, match=r"loop closing, item 1\(b\)"):
-        System(VOCAB, cfg, threaded=True, device="cpu")
+    # loop closing runs inline, or with threaded=True on a LoopWorker with
+    # the global BA on its own thread; only a viewer is still refused here
+    with pytest.raises(NotImplementedError, match="viewer"):
+        System(VOCAB, cfg, use_viewer=True, device="cpu")
     s = System(VOCAB, cfg, device="cpu")
     assert s.loop_closer is not None and s.local_mapper.on_processed == s.loop_closer.insert_keyframe
     assert s.loop_closer.on_pose_jump == s.tracker.apply_pose_jump
+    assert not s.loop_closer.threaded_gba and s.loop_closer.fix_scale
+    s = System(VOCAB, cfg, threaded=True, device="cpu")
+    assert s.loop_worker is not None and s.local_mapper.on_processed == s.loop_worker.submit
+    assert s.loop_closer.threaded_gba
+    s.shutdown()
     s = System(VOCAB, cfg, enable_loop_closing=False, device="cpu")
     assert s.loop_closer is None
-    with pytest.raises(NotImplementedError, match="MLPnP"):
-        Relocalizer(s.config, s.frontend, s.map, s.vocabulary, solver="mlpnp")
+    r = Relocalizer(s.config, s.frontend, s.map, s.vocabulary, solver="mlpnp")
+    assert r.solver == "mlpnp"
+    with pytest.raises(ValueError):
+        Relocalizer(s.config, s.frontend, s.map, s.vocabulary, solver="p3p")
 
 
 def test_system_relocalizes_and_never_raises():
