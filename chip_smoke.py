@@ -126,6 +126,27 @@ PyTorch built for CUDA. It
      2.5 s), ATE < 0.45 m), `wait_idle` and `shutdown` without an error,
      no global BA thread alive after; prints the global BA's host ms and
      its aborts;
+  9d. the checkpoint, the disk drivers, the rectifier and the viewer: the
+     slice's System (its last use) saved by `save_map` and loaded into a
+     fresh System on the card (keyframe and point sets, poses, positions,
+     observations and covisibility weights equal, each reloaded keyframe's
+     device features `torch.equal` to the original's, one K3 `mask` call
+     through `search_by_bow` between frame 39 and a reloaded keyframe equal
+     to the call on the original); the slice's 40 frames written as PNGs
+     in the EuRoC layout with identity LEFT/RIGHT blocks and run through
+     `drivers.run_euroc.main` on the card (counts set to 0 just before
+     and read just after: K1 and K2 one launch per frame, K3's stereo,
+     frame, points and mask modes and K4 launched; >= 39/40 tracked, ATE
+     < 0.06 m, timestamps within 5e-4 s, the three TUM files, every
+     decoded and rectified frame equal to the frame written), then 10
+     frames in the KITTI layout through `drivers.run_kitti.main` (a
+     12-column line per frame); the rectifier on the card against the CPU
+     on real blocks (maps within 1e-4 px, images within 1 gray level);
+     `System(None, cfg, use_viewer=True)` over 10 frames (>= 2 live
+     renders, no live error, > 50 green feature pixels, a saved map PNG
+     equal to `render_array`, the localization toggle and the reset
+     applied by the live loop) and its `shutdown(measure_frontend_split=
+     True)` (the report names "ORB extraction" and "Stereo matching");
   10. prints each phase's wall time, one JSON line of the phases' results,
      one JSON line describing the kernels (one row per K3 mode and
      caller, and K4), then the result line.
@@ -140,12 +161,15 @@ import bisect
 import contextlib
 import functools
 import hashlib
+import io
 import json
 import multiprocessing
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1648,6 +1672,252 @@ def run_threaded_loop(frames, lap, times):
     return out
 
 
+# the checkpoint, the disk drivers, the rectifier and the viewer: N_KITTI
+# of the slice's frames in the KITTI layout, N_VIEWER under the viewer
+N_KITTI = 10
+N_VIEWER = 10
+EUROC_T0_NS = 1403636579763555584  # EuRoC-style epoch-ns stamps
+EUROC_FILES = ("CameraTrajectory.txt", "OfflineCameraTrajectory.txt", "KeyFrameTrajectory.txt")
+
+
+def run_checkpoint(system, frame39, tmp) -> dict:
+    """(a) `save_map`, then `load_map` into a fresh System on the card: the
+    keyframe and point sets, poses, positions, observations and
+    covisibility weights equal, each reloaded keyframe's device features
+    `torch.equal` to the original's, and one K3 `mask` call through
+    `search_by_bow` between frame 39 and a reloaded keyframe equal to the
+    call on the original keyframe. The original's covisibility weights are
+    first refreshed from its observations under the map lock, as the
+    loader derives them (the live map's weights date from each keyframe's
+    last refresh); the slice's System is not used after this phase."""
+    from orbslam2_tpu_torch.ops import matchers
+
+    m = system.map
+    with m.lock:
+        for k in sorted(m.kf_valid):
+            m.update_connections(k)
+    path = os.path.join(tmp, "map.npz")
+    t0 = time.perf_counter()
+    system.save_map(path)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = System(None, system.config, device=DEVICE)
+    t0 = time.perf_counter()
+    fresh.load_map(path)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    m2 = fresh.map
+    check(m2.kf_valid == m.kf_valid and m2.pt_valid == m.pt_valid, "checkpoint: keyframe or point sets differ")
+    for k in m.kf_valid:
+        check(np.array_equal(m2.kf_pose[k], m.kf_pose[k]), f"checkpoint: keyframe {k}'s pose differs")
+        check(m2.covis[k] == m.covis[k], f"checkpoint: keyframe {k}'s covisibility {m2.covis[k]} != {m.covis[k]}")
+        check(all(torch.equal(a, b) and a.device == b.device for a, b in
+                  zip(m2.kf_frame[k].dev, m.kf_frame[k].dev)), f"checkpoint: keyframe {k}'s device features")
+    pts = m.pt_ids()
+    check(np.array_equal(m2.pt_pos[pts], m.pt_pos[pts]), "checkpoint: point positions differ")
+    # the file keeps the observations by live keyframes: the map's culling
+    # (SlamMap.remove_keyframe) leaves a culled keyframe's observation
+    # where the keyframe's point slot no longer names the point
+    live_obs = {int(p): {k: i for k, i in m.pt_obs[int(p)].items() if k in m.kf_valid} for p in pts}
+    stale = sum(len(m.pt_obs[p]) - len(o) for p, o in live_obs.items())
+    check(all(m2.pt_obs[p] == o for p, o in live_obs.items()), "checkpoint: observations differ")
+    k = max(m.kf_valid)
+    f = frame39.dev
+    calls = [matchers.search_by_bow(mm.kf_frame[k].dev.desc, mm.kf_frame[k].dev.valid, mm.kf_frame[k].dev.angle,
+                                    f.desc, f.valid, f.angle, 0.7) for mm in (m, m2)]
+    check(all(torch.equal(a, b) for a, b in zip(*calls)), "checkpoint: search_by_bow on the reloaded keyframe")
+    out = dict(keyframes=m.n_keyframes(), points=len(pts), save_ms=save_ms, load_ms=load_ms,
+               bytes=os.path.getsize(path), bow_matches=int(calls[0][2].sum()), stale_observations=stale)
+    print(f"checkpoint: {out['keyframes']} keyframes, {out['points']} points ({stale} observations by culled "
+          f"keyframes not kept), save {save_ms:.1f} ms, load {load_ms:.1f} ms, {out['bytes']} bytes; keyframe {k} "
+          f"vs frame 39 by search_by_bow: {out['bow_matches']} matches on both")
+    return out
+
+
+def _driver(main_fn, argv):
+    """Run a driver's main(argv), print its output, return (rc, output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    print(buf.getvalue(), end="")
+    return rc, buf.getvalue()
+
+
+def _medians(text):
+    """(median tracking ms, median image load ms) from a driver's output."""
+    track = re.search(r"mean tracking time: [\d.]+ms  median: ([\d.]+)ms", text)
+    load = re.search(r"mean image load time: [\d.]+ms  median: ([\d.]+)ms", text)
+    return float(track.group(1)), float(load.group(1))
+
+
+def run_disk(cfg, frames, poses_gt, tmp) -> dict:
+    """(b) The slice's frames as uint8 PNGs in the EuRoC layout, with a
+    settings YAML whose LEFT and RIGHT blocks are the identity, through
+    `drivers.run_euroc.main` on the card: >= 39/40 tracked, ATE < 0.06 m,
+    timestamps within 5e-4 s, the three TUM files written, K1 and K2 one
+    launch per frame and K3's stereo, frame, points and mask modes and K4
+    launched (counts set to 0 just before the run, read just after), every
+    decoded and rectified frame equal to the frame written. Then N_KITTI
+    frames in the KITTI layout through `drivers.run_kitti.main`: a
+    12-column trajectory line per frame."""
+    from orbslam2_tpu_torch.config import RectifyConfig, load_config
+    from orbslam2_tpu_torch.datasets import euroc, kitti
+    from orbslam2_tpu_torch.drivers import run_euroc, run_kitti
+
+    u8 = [tuple(np.clip(np.rint(im), 0, 255).astype(np.uint8) for im in pair) for pair in frames]
+    stamps = [EUROC_T0_NS + int(round(i * 0.05e9)) for i in range(len(u8))]
+    root = os.path.join(tmp, "euroc")
+    t0 = time.perf_counter()
+    left, right, times_file = euroc.write_sequence(root, u8, stamps)
+    write_ms = (time.perf_counter() - t0) * 1e3 / len(u8)
+    c = cfg.camera
+    K = np.array([[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1.0]])
+    eye = RectifyConfig(K=K, D=np.zeros((1, 5)), R=np.eye(3), P=np.concatenate([K, np.zeros((3, 1))], 1),
+                        width=c.width, height=c.height)
+    settings = os.path.join(tmp, "euroc.yaml")
+    euroc.write_settings(settings, SlamConfig(camera=cfg.camera, orb=cfg.orb, rectify_left=eye, rectify_right=eye))
+    seq = euroc.EurocSequence(left, right, times_file, load_config(settings), DEVICE)
+    for i in range(len(seq)):
+        imL, imR, _ = seq[i]
+        check(all(torch.equal(a.cpu(), torch.from_numpy(b).float()) for a, b in zip((imL, imR), u8[i])),
+              f"disk: frame {i} decoded and rectified differs from the frame written")
+    reset_launch_counts()
+    cpu = ["--cpu"] if DEVICE == "cpu" else []
+    rc, text = _driver(run_euroc.main, ["run_euroc", VOCAB, settings, left, right, times_file, root + "/", *cpu])
+    launches = launch_counts()
+    check(rc == 0, f"run_euroc returned {rc}")
+    for name in EUROC_FILES:
+        check(os.path.getsize(os.path.join(root, name)) > 0, f"run_euroc wrote no {name}")
+    traj = np.loadtxt(os.path.join(root, "CameraTrajectory.txt"), ndmin=2)
+    secs = np.asarray(stamps, np.float64) / 1e9
+    idx = np.abs(traj[:, :1] - secs[None]).argmin(axis=1)
+    dt = float(np.abs(traj[:, 0] - secs[idx]).max())
+    rmse = ate_rmse(traj[:, 1:4], np.stack([center(poses_gt[i]) for i in idx]))
+    track_ms, load_ms = _medians(text)
+    n = len(u8)
+    out = dict(tracked=len(traj), ate_rmse_m=rmse, max_stamp_err_s=dt, ms_per_frame_p50=track_ms,
+               load_ms_per_pair_p50=load_ms, png_write_ms=write_ms,
+               launches={k: v for k, v in launches.items() if v})
+    print(f"disk (EuRoC layout): {len(traj)}/{n} tracked, ATE RMSE {rmse:.4f} m, stamps within {dt:.2e} s, "
+          f"p50 {track_ms:.1f} ms tracking + {load_ms:.1f} ms PNG decode and rectification per pair; "
+          f"launches {out['launches']}")
+    check(len(traj) >= n - 1, f"disk: only {len(traj)}/{n} frames tracked")
+    check(rmse < 0.06, f"disk: ATE RMSE {rmse} >= 0.06 m")
+    check(dt <= 5e-4, f"disk: timestamps off by {dt} s")
+    for name in ("fast_nms", "orb_patch_desc"):
+        check(launches[name] == n, f"disk: {name} {launches[name]} launches over {n} frames")
+    for name in ("hamming_best2:stereo", "hamming_best2:frame", "hamming_best2:points", "hamming_best2:mask",
+                 "bow_transform"):
+        check(launches[name] > 0, f"disk: kernel {name} was not launched")
+    kroot = os.path.join(tmp, "kitti")
+    kitti.write_sequence(kroot, u8[:N_KITTI], [i * 0.05 for i in range(N_KITTI)])
+    ksettings = os.path.join(tmp, "kitti.yaml")
+    euroc.write_settings(ksettings, SlamConfig(camera=cfg.camera, orb=cfg.orb))
+    reset_launch_counts()
+    rc, text = _driver(run_kitti.main, ["run_kitti", VOCAB, ksettings, kroot, kroot + "/", *cpu])
+    launches = launch_counts()
+    rows = np.loadtxt(os.path.join(kroot, "CameraTrajectory.txt"), ndmin=2)
+    check(rc == 0 and rows.shape == (N_KITTI, 12), f"run_kitti: rc {rc}, trajectory {rows.shape}")
+    check(launches["fast_nms"] == N_KITTI and launches["orb_patch_desc"] == N_KITTI,
+          f"run_kitti: K1/K2 launches {launches}")
+    out["kitti_ms_per_frame_p50"], out["kitti_load_ms_per_pair_p50"] = _medians(text)
+    print(f"disk (KITTI layout): {N_KITTI} frames, 12-column trajectory, p50 {out['kitti_ms_per_frame_p50']:.1f} "
+          f"ms tracking + {out['kitti_load_ms_per_pair_p50']:.1f} ms PNG decode per pair")
+    return out
+
+
+def rectify_blocks() -> SlamConfig:
+    """Real rectification blocks: LEFT K is EuRoC cam0's (the config's
+    defaults), D its k1, k2, p1, p2 with k3 = 0, R a rotation of 0.5
+    degrees, P of f 435.2 and c (367.45, 252.2); RIGHT the same with P's
+    Tx = -47.9."""
+    from orbslam2_tpu_torch.config import RectifyConfig
+
+    c = CameraConfig()
+    K = np.array([[c.fx, 0, c.cx], [0, c.fy, c.cy], [0, 0, 1.0]])
+    D = np.array([[DISTORTION["k1"], DISTORTION["k2"], DISTORTION["p1"], DISTORTION["p2"], 0.0]])
+    axis = np.array([0.3, 0.8, 0.2]) / np.linalg.norm([0.3, 0.8, 0.2])
+    A = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    a = np.deg2rad(0.5)
+    R = np.eye(3) + np.sin(a) * A + (1 - np.cos(a)) * A @ A
+    P = np.array([[435.2, 0, 367.45, 0], [0, 435.2, 252.2, 0], [0, 0, 1, 0]])
+    PR = P.copy()
+    PR[0, 3] = -47.9
+    blocks = [RectifyConfig(K=K, D=D, R=R, P=p, width=c.width, height=c.height) for p in (P, PR)]
+    return SlamConfig(rectify_left=blocks[0], rectify_right=blocks[1])
+
+
+def check_rectifier(frames) -> dict:
+    """(c) The rectifier on the card against the CPU on real blocks: maps
+    within 1e-4 px, images within 1 gray level; times one pair."""
+    from orbslam2_tpu_torch.datasets.euroc import Rectifier
+
+    rcfg = rectify_blocks()
+    card, cpu = Rectifier(rcfg, DEVICE), Rectifier(rcfg, "cpu")
+    map_err = float((card.maps.cpu() - cpu.maps).abs().max())
+    pair = [np.clip(np.rint(im), 0, 255).astype(np.uint8) for im in frames[2]]
+    got, want = card(*pair), cpu(*pair)
+    img_err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    on_card = [torch.from_numpy(im).to(DEVICE) for im in pair]
+    ms = cuda_ms(lambda: card(*on_card))
+    print(f"rectifier card vs cpu: maps within {map_err:.2e} px, images within {img_err:.0f} gray levels; "
+          f"{ms:.4f} ms per pair on the card (uint8 on the card in, float32 out)")
+    check(map_err <= 1e-4, f"rectifier maps differ by {map_err} px")
+    check(img_err <= 1, f"rectified images differ by {img_err} gray levels")
+    return dict(map_err_px=map_err, img_err=img_err, ms_per_pair=ms)
+
+
+def _wait(cond, what, timeout=60.0):
+    t0 = time.monotonic()
+    while not cond():
+        check(time.monotonic() - t0 < timeout, f"viewer: {what} within {timeout} s")
+        time.sleep(0.05)
+
+
+def run_viewer(cfg, frames, tmp) -> dict:
+    """(d) `System(None, cfg, use_viewer=True)` over N_VIEWER frames: >= 2
+    live renders and no live error, `draw_frame` marks > 50 features
+    green, a saved map PNG decoded by `png.py` equals `render_array`,
+    live_map.png written, the localization toggle and the reset applied by
+    the live loop; (e) `shutdown(measure_frontend_split=True)` reports
+    "ORB extraction" and "Stereo matching"."""
+    from orbslam2_tpu_torch.datasets import png
+
+    system = System(None, cfg, use_viewer=True, device=DEVICE)
+    v = system.viewer
+    v.out_dir = os.path.join(tmp, "viewer")
+    for i, (imL, imR) in enumerate(frames[:N_VIEWER]):
+        system.track_stereo(imL, imR, timestamp=i / 20.0)
+    _wait(lambda: v.n_live_renders >= 2 or v.live_error is not None, "2 live renders")
+    check(v.live_error is None, f"viewer: live error {v.live_error!r}")
+    img = v.draw_frame()
+    green = int((img == np.array([0, 255, 0], np.uint8)).all(-1).sum())
+    path = os.path.join(tmp, "map.png")
+    v.save(path)
+    same = np.array_equal(png.read(path), v.render_array())
+    live_map = os.path.exists(os.path.join(v.out_dir, "live_map.png"))
+    v.set_localization_mode(True)
+    _wait(lambda: system.tracker.only_tracking, "localization mode on")
+    check(system.local_mapper.is_stopped(), "viewer: localization mode left the mapper running")
+    v.set_localization_mode(False)
+    _wait(lambda: not system.tracker.only_tracking, "localization mode off")
+    v.request_reset()
+    _wait(lambda: system.map.n_keyframes() == 0, "the reset")
+    report = system.shutdown(measure_frontend_split=True)
+    check(v._live_thread is None, "viewer: the live thread outlived shutdown")
+    split = {name: system.timers.mean_stddev(name)[0] / 1e3 for name in ("ORB extraction", "Stereo matching")}
+    out = dict(live_renders=v.n_live_renders, green=green, png_equals_render=same, live_map_png=live_map,
+               orb_extraction_ms=split["ORB extraction"], stereo_matching_ms=split["Stereo matching"])
+    print(f"viewer: {v.n_live_renders} live renders, {green} green feature pixels, saved map PNG equals "
+          f"render_array: {same}, live_map.png: {live_map}, localization toggle and reset applied by the live "
+          f"loop; stage split over 20 reps: ORB extraction {split['ORB extraction']:.3f} ms, Stereo matching "
+          f"{split['Stereo matching']:.3f} ms")
+    check(green > 50, f"viewer: {green} green feature pixels")
+    check(same, "viewer: the saved map PNG differs from render_array")
+    check(live_map, "viewer: no live_map.png")
+    check("ORB extraction" in report and "Stereo matching" in report, "shutdown report lacks the stage split")
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1683,6 +1953,7 @@ def main():
                                                                                record=REC_FRAMES)
     torch.cuda.synchronize()
     launches = launch_counts()
+    frame39 = system.tracker.last_frame
     lm = system.local_mapper
     mapping = dict(keyframes_mapped=lm.n_processed, local_ba=lm.n_local_ba, points_triangulated=lm.n_created)
     print(f"local mapping: {lm.n_processed} keyframes processed, {lm.n_created} points triangulated, "
@@ -1801,6 +2072,13 @@ def main():
     check(worst < 0.01, f"cuda and cpu poses differ by {worst} m")
     threaded = run_threaded(cfg, frames, poses_gt)
     phase_done("profiling, localization, cpu path and threaded slice", t0, times)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoint = run_checkpoint(system, frame39, tmp)
+        disk = run_disk(cfg, frames, poses_gt, tmp)
+        rectifier = check_rectifier(frames)
+        viewer = run_viewer(cfg, frames, tmp)
+    phase_done("checkpoint, disk drivers, rectifier, viewer", t0, times)
     mono_loop, circuit, lap = run_mono_loop(times)
     threaded_loop = run_threaded_loop(circuit, lap, times)
     times["total"] = time.perf_counter() - t_main
@@ -1814,7 +2092,8 @@ def main():
     }, "relocalization": {k: v for k, v in reloc.items() if k != "launches"},
         "localization": {k: v for k, v in localization.items() if k != "launches"}, "loop": loop,
         "mlpnp_relocalization": mlpnp_reloc, "undistortion": undistortion, "mono": mono, "mono_loop": mono_loop,
-        "threaded_loop": threaded_loop, "phase_seconds": times}, default=str))
+        "threaded_loop": threaded_loop, "checkpoint": checkpoint, "disk": disk, "rectifier": rectifier,
+        "viewer": viewer, "phase_seconds": times}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

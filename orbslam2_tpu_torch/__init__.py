@@ -14,11 +14,15 @@ Conventions that differ from the JAX package:
     on a CUDA tensor it launches the kernel or raises.
 
 The package imports `torch` and never `jax`, and nothing of the JAX
-package either, so that it runs on a machine that has neither. Where a
-JAX-package module that the stereo tracking path needs is JAX-free or
-nearly so (`config`, `slam.timing`, `evaluation.ate`, `slam.map`,
-`datasets.synthetic`, the ORB pattern file), the port carries a copy;
-each copy says so.
+package either, so that it runs on a machine that has neither, nor
+OpenCV, matplotlib or PIL (`datasets/png.py` reads and writes PNGs; the
+viewer draws into numpy rasters). Where a JAX-package module that the
+port needs is JAX-free or nearly so (`config`, `slam.timing`,
+`evaluation.ate`, `evaluation.associate`, `evaluation.analyze`,
+`slam.map`, `slam.pipeline`, `datasets.synthetic`, `vocab.train`, the
+ORB pattern file), the port carries a copy; each copy says so. The
+command-line drivers are `drivers/run_euroc.py`, `run_kitti.py` and
+`run_synthetic.py`.
 """
 
 __version__ = "0.1.0"

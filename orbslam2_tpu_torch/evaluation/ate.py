@@ -1,9 +1,10 @@
 """Absolute trajectory error — the reference's evaluation metric.
 
-Port of orbslam2_tpu/evaluation/ate.py::umeyama_alignment and ::ate_rmse
-(numpy only; the standard Umeyama SE(3)/Sim(3) alignment used by the
-ORB-SLAM2 papers for RMSE ATE). A copy, so that the port imports nothing
-of the JAX package.
+Port of orbslam2_tpu/evaluation/ate.py (numpy only): the standard Umeyama
+SE(3)/Sim(3) alignment used by the ORB-SLAM2 papers for RMSE ATE, the
+reference script's mean absolute error (result_analysis.py:171-192), the
+TUM trajectory reader and nearest-timestamp association. A copy, so that
+the port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -48,3 +49,40 @@ def ate_rmse(
         est = (s * (R @ est.T)).T + t
     err = est - gt
     return float(np.sqrt((err**2).sum(axis=1).mean()))
+
+
+def ate_mean_abs(est_xyz: np.ndarray, gt_xyz: np.ndarray, align: bool = True):
+    """Mean absolute error + std, the reference script's reported numbers
+    (result_analysis.py:171-192)."""
+    est = np.asarray(est_xyz, np.float64)
+    gt = np.asarray(gt_xyz, np.float64)
+    if align:
+        R, t, _ = umeyama_alignment(est, gt)
+        est = (R @ est.T).T + t
+    d = np.linalg.norm(est - gt, axis=1)
+    return float(d.mean()), float(d.std())
+
+
+def load_tum_trajectory(path: str) -> np.ndarray:
+    """Load a TUM-format trajectory file -> [N,8] (t x y z qx qy qz qw)."""
+    rows = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(x) for x in line.replace(",", " ").split()]
+            if len(vals) >= 8:
+                rows.append(vals[:8])
+    return np.array(rows)
+
+
+def associate_by_time(t_a: np.ndarray, t_b: np.ndarray, max_dt: float = 0.02):
+    """Nearest-timestamp association: returns index pairs (ia, ib)."""
+    ib = np.searchsorted(t_b, t_a)
+    ib = np.clip(ib, 1, len(t_b) - 1)
+    left = t_b[ib - 1]
+    right = t_b[ib]
+    ib = np.where(np.abs(t_a - left) < np.abs(t_a - right), ib - 1, ib)
+    ok = np.abs(t_b[ib] - t_a) <= max_dt
+    return np.nonzero(ok)[0], ib[ok]

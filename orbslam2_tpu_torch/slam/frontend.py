@@ -13,6 +13,8 @@ rectified pair's raw coordinates, as the JAX package does.
 
 from __future__ import annotations
 
+import functools
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -98,14 +100,55 @@ class Frontend:
         cc = self._cc
         return undistort.undistort_points(uv, cc.fx, cc.fy, cc.cx, cc.cy, cc.k1, cc.k2, cc.p1, cc.p2, cc.k3)
 
+    def _images(self, *images) -> torch.Tensor:
+        """numpy arrays or tensors -> one [n, H, W] float32 tensor on the
+        device (a tensor already there is not copied to the host)."""
+        stack = stack_images(*images)
+        if isinstance(stack, np.ndarray):
+            stack = torch.from_numpy(stack)
+        return stack.to(self.device, torch.float32)
+
     def process(self, im_left, im_right) -> FrameFeatures:
-        """Stereo pair (numpy arrays) -> FrameFeatures on the device."""
-        pair = torch.from_numpy(np.stack([np.asarray(im) for im in (im_left, im_right)]))
-        return self.features_body(pair.to(self.device, torch.float32))
+        """Stereo pair (numpy arrays or tensors) -> FrameFeatures on the device."""
+        return self.features_body(self._images(im_left, im_right))
 
     def process_mono(self, image) -> FrameFeatures:
-        """One image (numpy array) -> FrameFeatures on the device."""
-        return self.features_mono(torch.from_numpy(np.asarray(image)[None]).to(self.device, torch.float32))
+        """One image (numpy array or tensor) -> FrameFeatures on the device."""
+        return self.features_mono(self._images(image))
+
+    def measure_stage_split(self, im_left, im_right, reps: int = 20):
+        """The extraction-only program (`orb.extract` over both images: K1,
+        K2) against the whole `features_body` (K1, K2, K3 `stereo`) on one
+        stereo pair, each after one warm-up call, each timed call ending
+        synchronised with the device (orbslam2_tpu/slam/frontend.py::
+        measure_stage_split; the reference times the two as separate
+        stages, Frame.cpp:112-132). Returns (orb_seconds[reps],
+        full_seconds[reps]); their difference is stereo matching."""
+        images = self._images(im_left, im_right)
+        sync = torch.cuda.synchronize if self.device.type == "cuda" else (lambda: None)
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            fn(images)
+            sync()
+            return time.perf_counter() - t0
+
+        extract = functools.partial(orb.extract, params=self.orb_params)
+        for warm_up in (extract, self.features_body):
+            timed(warm_up)
+        t_orb, t_full = [], []
+        for _ in range(reps):
+            t_orb.append(timed(extract))
+            t_full.append(timed(self.features_body))
+        return t_orb, t_full
+
+
+def stack_images(*images):
+    """Images of one size -> one [n, H, W]: a tensor, where it lies, when
+    every image is a tensor, else a numpy array."""
+    if all(isinstance(im, torch.Tensor) for im in images):
+        return torch.stack(images)
+    return np.stack([np.asarray(im) for im in images])
 
 
 class FrameHost:

@@ -38,7 +38,7 @@ import torch
 from .. import convert
 from ..config import SlamConfig
 from ..ops import hamming, initializer, matchers, pose_opt
-from .frontend import FrameHost, Frontend
+from .frontend import FrameHost, Frontend, stack_images
 from .map import SlamMap
 
 
@@ -70,6 +70,14 @@ def _fetch(host: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in host.items()}
 
 
+def _u8(images):
+    """Images as uint8, rounded and clipped where they are not (a tensor
+    stays where it lies)."""
+    if isinstance(images, torch.Tensor):
+        return images if images.dtype == torch.uint8 else torch.round(images).clamp(0, 255).to(torch.uint8)
+    return images if images.dtype == np.uint8 else np.clip(np.rint(images), 0, 255).astype(np.uint8)
+
+
 class Tracker:
     def __init__(self, config: SlamConfig, frontend: Frontend, slam_map: SlamMap):
         self.config = config
@@ -88,6 +96,9 @@ class Tracker:
         self.state = TrackingState.NO_IMAGES_YET
         self.velocity: Optional[np.ndarray] = None  # Tcl (cur <- last)
         self.last_frame: Optional[FrameHost] = None
+        #: the last stereo pair as given (a reference, not a copy), for
+        #: `System.shutdown(measure_frontend_split=True)`
+        self.last_images = None
         self.ref_kf: Optional[int] = None
         self.last_kf_id = 0  # frame id at last KF insertion
         self.last_reloc_frame_id = 0
@@ -279,15 +290,10 @@ class Tracker:
         )
 
     def track(self, im_left, im_right, timestamp: float) -> Optional[np.ndarray]:
-        """Process one stereo frame; returns Tcw or None when lost."""
-
-        def _u8(im):
-            a = np.asarray(im)
-            if a.dtype == np.uint8:
-                return a
-            return np.clip(np.rint(a), 0, 255).astype(np.uint8)
-
-        images_u8 = np.stack([_u8(im_left), _u8(im_right)])
+        """Process one stereo frame (numpy arrays, or tensors, which stay on
+        the device); returns Tcw or None when lost."""
+        self.last_images = (im_left, im_right)
+        images_u8 = _u8(stack_images(im_left, im_right))
         if self._can_fuse():
             with self._span("Fused assemble"):
                 with self.map.lock:
@@ -519,6 +525,8 @@ class Tracker:
     # ------------------------------------------------------------------
 
     def _tensor(self, a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _check_replaced_in_last_frame(self):

@@ -19,11 +19,10 @@ frame: on a CUDA tensor it launches K4 (`csrc/bow_transform.cu`, one warp
 per descriptor, the staged levels in shared memory); on a CPU tensor it
 takes `transform_words_nodes_plain`, a loop of `depth` gather + XOR +
 popcount + masked argmin steps. The sparse tf-idf vector and the L1 score
-run on the host in numpy, as in the JAX package.
+run on the host in numpy, as in the JAX package; the dense vector
+(`bow_vector`) and DBoW2's six scores (`score`) are plain PyTorch.
 
-Not ported (ROADMAP queue 1): the dense scorers (`bow_vector`, the six
-`*_score` functions), which only the JAX package's tests call, the
-vocabulary trainer (`vocab/train.py`) and the native DBoW2 text parser;
+Not ported (ROADMAP queue 1): the native DBoW2 text parser;
 `load_dbow2_text` here is the pure-Python parser.
 
 K4's launch counter is counted under a lock: the mapping worker thread
@@ -294,6 +293,93 @@ def l1_score_sparse(a, b) -> float:
     if i1.size == 0:
         return 0.0
     return float(np.minimum(wv1[i1], wv2[i2]).sum())
+
+
+# ---------------------------------------------------------------------------
+# dense BoW vectors and DBoW2's six scores (ScoringObject.cpp); the
+# reference's ORB vocabulary selects L1 (TemplatedVocabulary.h:468-471).
+# Each score expects vectors built with the norm in SCORING_NORM[method].
+# ---------------------------------------------------------------------------
+
+_LOG_EPS = float(np.log(np.finfo(np.float64).eps))
+
+#: normalization each scorer expects (ScoringObject.h:74-89)
+SCORING_NORM = {
+    "l1": "l1",
+    "l2": "l2",
+    "chi_square": "l1",
+    "kl": "l1",
+    "bhattacharyya": "l1",
+    "dot_product": None,
+}
+
+
+def bow_vector(voc: Vocabulary, words: torch.Tensor, norm: str | None = "l1") -> torch.Tensor:
+    """Dense tf-idf vector [n_words] float32 from word ids (-1 ignored):
+    each word's idf weight times its count, normalized by norm "l1", "l2"
+    or None (the dot-product scorer), as orbslam2_tpu/vocab/bow.py::
+    bow_vector."""
+    counts = torch.bincount(words[words >= 0].long(), minlength=voc.n_words)
+    v = voc.word_weight * counts.to(torch.float32)
+    if norm is None:
+        return v
+    n = torch.sqrt(torch.sum(v * v)) if norm == "l2" else torch.sum(torch.abs(v))
+    return v / torch.where(n > 0, n, torch.ones_like(n))
+
+
+def l1_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """1 - 0.5 ||v - w||_1 on L1-normalized vectors, in [0, 1]
+    (ScoringObject.cpp:23-68)."""
+    return 1.0 - 0.5 * torch.sum(torch.abs(v1 - v2))
+
+
+def l2_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """1 - sqrt(1 - <v, w>) on L2-normalized vectors, in [0, 1]
+    (ScoringObject.cpp:73-119)."""
+    return 1.0 - torch.sqrt(1.0 - torch.clamp(torch.sum(v1 * v2), max=1.0))
+
+
+def chi_square_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """2 sum(v w / (v + w)) on L1-normalized vectors, in [0, 1]
+    (ScoringObject.cpp:125-169)."""
+    denom = v1 + v2
+    return 2.0 * torch.sum(torch.where(denom > 0, v1 * v2 / torch.where(denom > 0, denom, 1.0), 0.0))
+
+
+def kl_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """KL divergence of v1 from v2 on L1-normalized vectors: the sum over
+    v_i > 0 of v log(v / w), log(eps) standing in where w_i == 0
+    (ScoringObject.cpp:174-221). Unscaled; lower is better."""
+    logw = torch.where(v2 > 0, torch.log(torch.where(v2 > 0, v2, 1.0)), _LOG_EPS)
+    logv = torch.log(torch.where(v1 > 0, v1, 1.0))
+    return torch.sum(torch.where(v1 > 0, v1 * (logv - logw), 0.0))
+
+
+def bhattacharyya_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """sum(sqrt(v w)) on L1-normalized vectors, in [0, 1]
+    (ScoringObject.cpp:226-262)."""
+    return torch.sum(torch.sqrt(v1 * v2))
+
+
+def dot_product_score(v1: torch.Tensor, v2: torch.Tensor) -> torch.Tensor:
+    """<v, w> on unnormalized vectors (ScoringObject.cpp:267-303). Unscaled."""
+    return torch.sum(v1 * v2)
+
+
+_SCORERS = {
+    "l1": l1_score,
+    "l2": l2_score,
+    "chi_square": chi_square_score,
+    "kl": kl_score,
+    "bhattacharyya": bhattacharyya_score,
+    "dot_product": dot_product_score,
+}
+
+
+def score(v1: torch.Tensor, v2: torch.Tensor, method: str = "l1") -> torch.Tensor:
+    """Score two dense BoW vectors with any DBoW2 metric; they must be built
+    with bow_vector(..., norm=SCORING_NORM[method])."""
+    return _SCORERS[method](v1, v2)
 
 
 # ---------------------------------------------------------------------------

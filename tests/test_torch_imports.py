@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from orbslam2_tpu import config as jconfig
+from orbslam2_tpu.evaluation import analyze as janalyze
 from orbslam2_tpu.evaluation import ate as jate
 from orbslam2_tpu.slam import timing as jtiming
 from orbslam2_tpu_torch import config as tconfig
+from orbslam2_tpu_torch.evaluation import analyze as tanalyze
 from orbslam2_tpu_torch.evaluation import ate as tate
 from orbslam2_tpu_torch.kernels import build
 from orbslam2_tpu_torch.ops import fast, hamming, patches
@@ -39,13 +41,21 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "orbslam2_tpu_torch.slam.loop_closing",
     "orbslam2_tpu_torch.ops.initializer, orbslam2_tpu_torch.ops.undistort, orbslam2_tpu_torch.ops.mlpnp, "
     "orbslam2_tpu_torch.geometry.triangulation",
+    "orbslam2_tpu_torch.slam.checkpoint, orbslam2_tpu_torch.slam.viewer, orbslam2_tpu_torch.datasets.png, "
+    "orbslam2_tpu_torch.datasets.euroc, orbslam2_tpu_torch.datasets.kitti",
+    "orbslam2_tpu_torch.drivers.run_euroc, orbslam2_tpu_torch.drivers.run_kitti, "
+    "orbslam2_tpu_torch.drivers.run_synthetic, orbslam2_tpu_torch.evaluation.associate, "
+    "orbslam2_tpu_torch.evaluation.analyze, orbslam2_tpu_torch.vocab.train",
 ])
 def test_imports_without_jax(module):
+    """Each module imports with JAX, the JAX package, OpenCV, matplotlib and
+    PIL blocked, and loads none of them."""
+    blocked = ("jax", "orbslam2_tpu", "cv2", "matplotlib", "PIL")
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['orbslam2_tpu'] = None; "
+        f"import sys; blocked = {blocked!r}; sys.modules.update(dict.fromkeys(blocked)); "
         f"import {module}; "
         "bad = [m for m, v in sys.modules.items() if v is not None and "
-        "(m in ('jax', 'orbslam2_tpu') or m.startswith(('jax.', 'orbslam2_tpu.')))]; "
+        "(m in blocked or m.startswith(tuple(b + '.' for b in blocked)))]; "
         "print('ok' if not bad else bad)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -59,8 +69,8 @@ def _code_below_docstring(path):
     return ast.dump(tree)
 
 
-@pytest.mark.parametrize("part", ["config", "timing", "ate", "pattern", "pipeline"])
-def test_copies_equal_jax_package(part):
+@pytest.mark.parametrize("part", ["config", "timing", "ate", "pattern", "pipeline", "associate", "analyze"])
+def test_copies_equal_jax_package(part, tmp_path, capsys):
     if part == "config":
         for name in ("CameraConfig", "OrbConfig", "RectifyConfig"):
             assert dataclasses.asdict(getattr(tconfig, name)()) == dataclasses.asdict(
@@ -76,6 +86,8 @@ def test_copies_equal_jax_package(part):
             for us in (10.0, 30.0):
                 timers.samples.setdefault("Total tracking", []).append(us)
         assert t.report() == j.report()
+        for name in ("TRACKING_STAGES", "LOCAL_MAPPING_STAGES", "LOOP_CLOSING_STAGES"):
+            assert getattr(ttiming, name) == getattr(jtiming, name)
     elif part == "ate":
         rng = np.random.default_rng(1)
         gt = rng.normal(size=(40, 3))
@@ -83,6 +95,25 @@ def test_copies_equal_jax_package(part):
         for with_scale in (False, True):
             assert tate.ate_rmse(est, gt, with_scale=with_scale) == jate.ate_rmse(
                 est, gt, with_scale=with_scale)
+        for align in (False, True):
+            assert tate.ate_mean_abs(est, gt, align) == jate.ate_mean_abs(est, gt, align)
+        t_a, t_b = np.sort(rng.uniform(0, 10, 50)), np.sort(rng.uniform(0, 10, 70))
+        for got, want in zip(tate.associate_by_time(t_a, t_b, 0.05), jate.associate_by_time(t_a, t_b, 0.05)):
+            np.testing.assert_array_equal(got, want)
+        path = _tum_file(tmp_path / "traj.txt", rng, 30)
+        np.testing.assert_array_equal(tate.load_tum_trajectory(path), jate.load_tum_trajectory(path))
+    elif part == "associate":
+        assert _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu", "evaluation", "associate.py")) == \
+            _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu_torch", "evaluation", "associate.py"))
+    elif part == "analyze":
+        # the same report on the same files; the port has no --plot
+        rng = np.random.default_rng(2)
+        est, gt = _tum_file(tmp_path / "est.txt", rng, 40), _tum_file(tmp_path / "gt.txt", rng, 40)
+        outputs = []
+        for module in (tanalyze, janalyze):
+            assert module.main([est, gt]) == 0
+            outputs.append(capsys.readouterr().out)
+        assert outputs[0] == outputs[1] and "ATE RMSE" in outputs[0]
     elif part == "pipeline":
         assert _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu", "slam", "pipeline.py")) == \
             _code_below_docstring(os.path.join(ROOT, "orbslam2_tpu_torch", "slam", "pipeline.py"))
@@ -92,8 +123,19 @@ def test_copies_equal_jax_package(part):
             assert a.read() == b.read()
 
 
+def _tum_file(path, rng, n):
+    t = np.arange(n) * 0.05 + rng.uniform(0, 0.004, n)
+    q = rng.normal(size=(n, 4))
+    rows = np.column_stack([t, rng.normal(size=(n, 3)), q / np.linalg.norm(q, axis=1, keepdims=True)])
+    np.savetxt(path, rows, header="t x y z qx qy qz qw")
+    return str(path)
+
+
 def test_no_jax_import_in_port_sources():
-    pattern = re.compile(r"^\s*(import jax|from jax|import orbslam2_tpu\b(?!_)|from orbslam2_tpu\b(?!_))", re.M)
+    """No JAX, JAX package, OpenCV, matplotlib or PIL import anywhere in the
+    port or its card scripts, not even behind a `try`."""
+    pattern = re.compile(r"^\s*(import jax|from jax|import orbslam2_tpu\b(?!_)|from orbslam2_tpu\b(?!_)"
+                         r"|(import|from) (cv2|matplotlib|PIL)\b)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_device_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "orbslam2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]

@@ -88,9 +88,12 @@ def test_unported_calls_raise():
     world = SyntheticWorld(n_points=50, seed=1, baseline=0.2)
     cfg = slam_config(world, torch_config)
     # loop closing runs inline, or with threaded=True on a LoopWorker with
-    # the global BA on its own thread; only a viewer is still refused here
-    with pytest.raises(NotImplementedError, match="viewer"):
-        System(VOCAB, cfg, use_viewer=True, device="cpu")
+    # the global BA on its own thread; a viewer runs on a thread of its own
+    # until shutdown
+    s = System(VOCAB, cfg, use_viewer=True, device="cpu")
+    assert s.viewer is not None and s.viewer._live_thread.is_alive()
+    s.shutdown()
+    assert s.viewer._live_thread is None and s.viewer.live_error is None
     s = System(VOCAB, cfg, device="cpu")
     assert s.loop_closer is not None and s.local_mapper.on_processed == s.loop_closer.insert_keyframe
     assert s.loop_closer.on_pose_jump == s.tracker.apply_pose_jump

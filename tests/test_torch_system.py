@@ -7,6 +7,7 @@ tests/test_tracking.py); the four trajectory savers equal the JAX
 package's savers on the same entries within 1e-6.
 """
 
+import functools
 import os
 
 import numpy as np
@@ -49,8 +50,19 @@ def test_tracks_sequence(run):
     for e in system.tracker.trajectory:
         assert e.ref_kf in system.map.kf_pose
     assert system.local_mapper.n_processed >= 2 and system.local_mapper.n_local_ba >= 1
-    report = system.shutdown()
+    tracked = system.get_tracked_map_points()
+    lf = system.tracker.last_frame
+    assert len(tracked) > 50 and tracked == [int(p) for p in lf.point_ids if p >= 0]
+    assert system.map_changed() == system.map.big_change_idx == 0
+    # the reference's two front-end stages, measured on the last pair (2
+    # repetitions in place of 20: the CPU's front end takes ~0.3 s)
+    assert system.tracker.last_images is not None
+    split = system.frontend.measure_stage_split
+    system.frontend.measure_stage_split = functools.partial(split, reps=2)
+    report = system.shutdown(measure_frontend_split=True)
     assert "Fused frame step" in report and "Map point creation" in report
+    for name in ("ORB extraction", "Stereo matching"):
+        assert name in report and len(system.timers.samples[name]) == 2
 
 
 def test_trajectory_savers(run, tmp_path):
@@ -93,13 +105,14 @@ VOCAB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     dict(use_viewer=True), dict(settings=torch_config.SlamConfig(camera=torch_config.CameraConfig(k1=0.1))),
 ])
 def test_refuses_unported_options(kw):
-    """A device mesh and a viewer raise, naming their ROADMAP item; the
-    options that were refused until loop closing on its own thread, the
-    monocular sensor and undistortion were ported construct."""
+    """A device mesh raises, naming its ROADMAP item; the options that were
+    refused until loop closing on its own thread, the monocular sensor,
+    undistortion and the viewer were ported construct (the viewer's live
+    thread runs until `shutdown` joins it)."""
     args = dict(vocabulary=None, settings=slam_config(SyntheticWorld(n_points=10, seed=0), torch_config),
                 device="cpu")
     args.update(kw)
-    if "mesh" in kw or "use_viewer" in kw:
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             System(**args)
         return
@@ -108,6 +121,9 @@ def test_refuses_unported_options(kw):
         assert s.loop_worker is not None and s.loop_closer.threaded_gba
     elif "sensor" in kw:
         assert s.config.monocular and s.tracker.config.monocular
+    elif "use_viewer" in kw:
+        assert s.viewer is not None and s.viewer._live_thread.is_alive()
     else:
         assert s.frontend.has_distortion
     s.shutdown()
+    assert "use_viewer" not in kw or (s.viewer._live_thread is None and s.viewer.live_error is None)
