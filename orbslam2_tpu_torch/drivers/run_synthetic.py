@@ -5,9 +5,11 @@ driver: renders a known trajectory, tracks it, prints per-stage behavior
 and the trajectory error. Port of examples/run_synthetic.py. Usage:
 
     python -m orbslam2_tpu_torch.drivers.run_synthetic [--frames 60] [--cpu] [--local-mapping]
-        [--loop] [--viewer-out DIR] [--seed 7]
+        [--loop] [--viewer-out DIR] [--seed 7] [--mesh N]
 
-`--mesh N` (N > 0) raises: multi-GPU execution is not ported yet.
+`--mesh N` (with `--loop`) shards the loop closer's whole-map passes
+(essential graph, global BA) over the first N cards, and fails when fewer
+are visible; with `--cpu` over N shards on the CPU.
 """
 
 import argparse
@@ -29,10 +31,11 @@ def main(argv=None):
                     help="directory for map snapshot PNGs")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard whole-map passes over an N-device mesh (not ported)")
+                    help="shard the loop closer's whole-map passes over an N-device mesh "
+                         "(with --cpu: N CPU shards); needs --loop")
     args = ap.parse_args(argv)
-    if args.mesh > 0:
-        raise NotImplementedError("--mesh: multi-device execution is not ported yet (ROADMAP queue 1: multi-GPU)")
+    if args.mesh > 0 and not args.loop:
+        ap.error("--mesh shards the loop closer's passes: it needs --loop")
 
     import numpy as np
     import torch
@@ -45,6 +48,11 @@ def main(argv=None):
     from ..slam.tracking import Tracker
 
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.mesh > 0:
+        from ..parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.mesh, device=device)
     if args.loop:
         world = SyntheticWorld(
             n_points=2000, seed=args.seed, baseline=0.2, vertical_extent=6.0,
@@ -85,7 +93,9 @@ def main(argv=None):
         )
         reloc = Relocalizer(cfg, frontend, slam_map, voc)
         tracker.relocalizer = reloc
-        closer = LoopCloser(cfg, frontend, slam_map, reloc, local_mapper=tracker.local_mapper)
+        closer = LoopCloser(cfg, frontend, slam_map, reloc, local_mapper=tracker.local_mapper, mesh=mesh)
+        if closer.mesh is not None:
+            print(f"whole-map passes sharded over {closer.mesh}")
         tracker.local_mapper.on_processed = closer.insert_keyframe
 
     print(f"device: {torch.device(device)}"

@@ -20,6 +20,14 @@ Every LM step stays on the tensors' device with no host sync: accept or
 reject is a `torch.where`. A solve syncs once when it lays out the camera
 segments, and `ba_solve_pm_interruptible` also where it reads
 `float(state.F)` between chunks of iterations.
+
+With a `reducer` (one shard of a mesh, `parallel/dist_ba.py`) the problem
+holds this shard's point rows, and the sums over every point (the
+camera-side gradient and blocks, the cost, the point halves of the PCG's
+dot products, the largest point-block diagonal entry) go through
+`reducer.sum` / `reducer.max`, where the JAX package psums over its mesh
+axis (`axis_name`). Without one every result has the bits it had before
+meshes were ported.
 """
 
 from __future__ import annotations
@@ -185,41 +193,57 @@ def _camera_sum(seg: Segments, x: torch.Tensor) -> torch.Tensor:
     return segment_sum(seg, x.reshape(-1, x.shape[-1]))
 
 
-def _pm_assemble(poses, points, prob: BAProblemPM, cam: Camera, use_huber: bool, seg: Segments):
-    """Gradients, diagonal blocks and robust cost (+ edge terms for reuse)."""
+def psum(reducer, x: torch.Tensor) -> torch.Tensor:
+    """x summed over the mesh's shards (x itself without a mesh)."""
+    return x if reducer is None else reducer.sum(x)
+
+
+def pmax(reducer, x: torch.Tensor) -> torch.Tensor:
+    """The largest entry of x over the mesh's shards (a shard may hold no
+    rows: its share is -inf)."""
+    if reducer is None:
+        return x.max()
+    local = x.max() if x.numel() else torch.tensor(float("-inf"), dtype=x.dtype, device=x.device)
+    return reducer.max(local)
+
+
+def _pm_assemble(poses, points, prob: BAProblemPM, cam: Camera, use_huber: bool, seg: Segments,
+                 reducer=None):
+    """Gradients, diagonal blocks and robust cost (+ edge terms for reuse);
+    the camera-side ones and the cost summed over the mesh's shards."""
     K = prob.poses.shape[0]
     r, Jc, Jp, comp, dok = _pm_edge_terms(poses, points, prob, cam)
     w, _, rho = _pm_weights(r, comp, prob, dok, use_huber)
     W = w[..., None] * comp  # [P,D,3]
     Wr = W * r
-    gc = _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wr))
+    gc = psum(reducer, _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wr)))
     gp = torch.einsum("pdci,pdc->pi", Jp, Wr)
-    Hcc = _camera_sum(seg, torch.einsum("pdci,pdc,pdcj->pdij", Jc, W, Jc).flatten(-2)).reshape(K, 6, 6)
+    Hcc = psum(reducer, _camera_sum(seg, torch.einsum("pdci,pdc,pdcj->pdij", Jc, W, Jc).flatten(-2)))
     Hpp = torch.einsum("pdci,pdc,pdcj->pij", Jp, W, Jp)
-    return (r, Jc, Jp, W), gc, gp, Hcc, Hpp, torch.sum(rho)
+    return (r, Jc, Jp, W), gc, gp, Hcc.reshape(K, 6, 6), Hpp, psum(reducer, torch.sum(rho))
 
 
 def ba_pm_init(prob: BAProblemPM, cam: Camera, use_huber: bool = True,
-               seg: Optional[Segments] = None) -> PMLMState:
+               seg: Optional[Segments] = None, reducer=None) -> PMLMState:
     """Initial LM state: lambda = 1e-5 x the largest Hessian diagonal entry
     (g2o's heuristic). `seg`: `camera_segments(prob)`, built here if None."""
     seg = camera_segments(prob) if seg is None else seg
-    _, _, _, Hcc0, Hpp0, F0 = _pm_assemble(prob.poses, prob.points, prob, cam, use_huber, seg)
+    _, _, _, Hcc0, Hpp0, F0 = _pm_assemble(prob.poses, prob.points, prob, cam, use_huber, seg, reducer)
     diag_max = torch.maximum(torch.diagonal(Hcc0, dim1=-2, dim2=-1).max(),
-                             torch.diagonal(Hpp0, dim1=-2, dim2=-1).max())
+                             pmax(reducer, torch.diagonal(Hpp0, dim1=-2, dim2=-1)))
     return PMLMState(poses=prob.poses, points=prob.points, lam=1e-5 * diag_max,
                      ni=torch.full_like(F0, 2.0), F=F0)
 
 
 def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
-               use_huber: bool = True, seg: Optional[Segments] = None) -> PMLMState:
+               use_huber: bool = True, seg: Optional[Segments] = None, reducer=None) -> PMLMState:
     """One point-major LM iteration: PCG inner solve of the damped normal
     equations, then accept or reject on the device. `seg`:
     `camera_segments(prob)`, built here if None."""
     seg = camera_segments(prob) if seg is None else seg
     free = (~prob.pose_fixed).to(prob.poses.dtype)[:, None]
     poses, points, lam, ni, F = state
-    (r, Jc, Jp, W), gc, gp, Hcc, Hpp, _ = _pm_assemble(poses, points, prob, cam, use_huber, seg)
+    (r, Jc, Jp, W), gc, gp, Hcc, Hpp, _ = _pm_assemble(poses, points, prob, cam, use_huber, seg, reducer)
     gc = gc * free
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
@@ -230,7 +254,7 @@ def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
         vc = vc * free
         a = torch.einsum("pdci,pdi->pdc", Jc, vc[prob.obs_kf]) + torch.einsum("pdci,pi->pdc", Jp, vp)
         Wa = W * a
-        Hc = _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wa))
+        Hc = psum(reducer, _camera_sum(seg, torch.einsum("pdci,pdc->pdi", Jc, Wa)))
         Hp = torch.einsum("pdci,pdc->pi", Jp, Wa)
         return (Hc + lam * vc) * free, Hp + lam * vp
 
@@ -238,7 +262,7 @@ def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
         return (Mc @ rc[..., None])[..., 0] * free, (Mp @ rp[..., None])[..., 0]
 
     def dot(ac, bc, ap, bp):
-        return torch.sum(ac * bc) + torch.sum(ap * bp)
+        return torch.sum(ac * bc) + psum(reducer, torch.sum(ap * bp))
 
     def safe(x):
         return torch.where(torch.abs(x) < 1e-20, 1e-20, x)
@@ -263,8 +287,8 @@ def ba_pm_step(prob: BAProblemPM, cam: Camera, state: PMLMState, n_cg: int = 20,
     dxp = -xp
     poses_new = se3.retract(poses, dxc)
     points_new = points + dxp
-    F_new = _pm_assemble(poses_new, points_new, prob, cam, use_huber, seg)[-1]
-    gdot = torch.sum(dxc * (lam * dxc - gc)) + torch.sum(dxp * (lam * dxp - gp))
+    F_new = _pm_assemble(poses_new, points_new, prob, cam, use_huber, seg, reducer)[-1]
+    gdot = torch.sum(dxc * (lam * dxc - gc)) + psum(reducer, torch.sum(dxp * (lam * dxp - gp)))
     rho = (F - F_new) / (gdot + 1e-12)
     ok = (rho > 0) & torch.isfinite(F_new)
     return PMLMState(
@@ -290,16 +314,18 @@ def pm_inlier_mask(poses, points, prob: BAProblemPM, cam: Camera) -> torch.Tenso
 
 
 def ba_solve_pm(prob: BAProblemPM, cam: Camera, n_iters_first: int = 5, n_iters_second: int = 10,
-                n_cg: int = 20) -> BAResultPM:
-    """The two-stage schedule; one host sync, in `camera_segments`."""
+                n_cg: int = 20, reducer=None) -> BAResultPM:
+    """The two-stage schedule; one host sync, in `camera_segments`.
+    `reducer`: this shard's link to the other shards of a mesh
+    (`parallel/mesh.py`), or None for the whole problem on one device."""
     seg = camera_segments(prob)
-    state = ba_pm_init(prob, cam, seg=seg)
+    state = ba_pm_init(prob, cam, seg=seg, reducer=reducer)
     for _ in range(n_iters_first):
-        state = ba_pm_step(prob, cam, state, n_cg, seg=seg)
+        state = ba_pm_step(prob, cam, state, n_cg, seg=seg, reducer=reducer)
     prob2 = prob._replace(edge_valid=pm_inlier_mask(state.poses, state.points, prob, cam))
-    state = ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam, seg=seg)
+    state = ba_pm_init(prob2._replace(poses=state.poses, points=state.points), cam, seg=seg, reducer=reducer)
     for _ in range(n_iters_second):
-        state = ba_pm_step(prob2, cam, state, n_cg, seg=seg)
+        state = ba_pm_step(prob2, cam, state, n_cg, seg=seg, reducer=reducer)
     inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
     return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)
 

@@ -22,18 +22,28 @@ Fixed vertices and, with `fix_scale` (stereo, Optimizer.cpp:848), the
 log-scale coordinate take no update. The solve runs in the problem's
 dtype: the loop closer builds it in float64 (the JAX package solves in
 float32), so that the card and the CPU agree to far below the test's bar.
-One host sync, when the per-vertex segments are built.
+One host sync, when the per-vertex segments are built. With a `reducer`
+(one shard of a mesh, `parallel/dist_posegraph.py`) the problem holds this
+shard's edges and every per-vertex sum (gradient, diagonal blocks, each
+H*p product) and the cost go through `reducer.sum`, where the JAX package
+psums over its mesh axis; without one the solve is what it was before
+meshes were ported, bit for bit.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
 import torch.autograd.forward_ad as fwAD
 
 from ..geometry import sim3
-from .ba import segment_sum, segments
+from .ba import psum, segment_sum, segments
+
+#: forward-mode AD has one dual level per process, so the shards of an
+#: in-process mesh (one thread each) take turns at it
+_DUAL_LEVEL = threading.Lock()
 
 
 class PoseGraphProblem(NamedTuple):
@@ -59,7 +69,7 @@ def _edge_res_jac(Si: sim3.Sim3, Sj: sim3.Sim3, Sji: sim3.Sim3):
     E = Sji.s.shape[0]
     dtype, dev = Sji.t.dtype, Sji.t.device
     tangents = torch.eye(14, dtype=dtype, device=dev)[:, None, :].expand(14, E, 14)
-    with fwAD.dual_level():
+    with _DUAL_LEVEL, fwAD.dual_level():
         x = fwAD.make_dual(torch.zeros(14, E, 14, dtype=dtype, device=dev), tangents)
         r = _edge_residual(sim3.retract(Si, x[..., :7]), sim3.retract(Sj, x[..., 7:]), Sji)
         r, dr = fwAD.unpack_dual(r)
@@ -72,8 +82,10 @@ def _gather(S: sim3.Sim3, idx) -> sim3.Sim3:
 
 
 def optimize_essential_graph(prob: PoseGraphProblem, n_iters: int = 20, n_cg: int = 50,
-                             fix_scale: bool = True):
-    """Returns (optimized vertices as a batched Sim3, final cost)."""
+                             fix_scale: bool = True, reducer=None):
+    """Returns (optimized vertices as a batched Sim3, final cost).
+    `reducer`: this shard's link to the other shards of a mesh
+    (`parallel/mesh.py`), or None for the whole graph on one device."""
     K = prob.vertices.s.shape[0]
     V0 = prob.vertices
     dtype, dev = V0.t.dtype, V0.t.device
@@ -88,18 +100,18 @@ def optimize_essential_graph(prob: PoseGraphProblem, n_iters: int = 20, n_cg: in
     ends = segments(torch.cat([ei, ej]), K, torch.cat([prob.edge_valid, prob.edge_valid]))
 
     def vsum(xi, xj):
-        return segment_sum(ends, torch.cat([xi, xj]))
+        return psum(reducer, segment_sum(ends, torch.cat([xi, xj])))
 
     def cost(V):
         r = _edge_residual(_gather(V, ei), _gather(V, ej), prob.meas)
-        return ((r * r) * w[:, None]).sum()
+        return psum(reducer, ((r * r) * w[:, None]).sum())
 
     def assemble(V):
         r, Ji, Jj = _edge_res_jac(_gather(V, ei), _gather(V, ej), prob.meas)
         rw = r * w[:, None]
         g = vsum(torch.einsum("eci,ec->ei", Ji, rw), torch.einsum("eci,ec->ei", Jj, rw))
         Hd = vsum(torch.einsum("eci,e,ecj->eij", Ji, w, Ji), torch.einsum("eci,e,ecj->eij", Jj, w, Jj))
-        return g, Hd, (rw * r).sum(), Ji, Jj
+        return g, Hd, Ji, Jj
 
     def hv(v, Ji, Jj, lam):
         a = torch.einsum("eci,ei->ec", Ji, v[ei]) + torch.einsum("eci,ei->ec", Jj, v[ej])
@@ -114,7 +126,7 @@ def optimize_essential_graph(prob: PoseGraphProblem, n_iters: int = 20, n_cg: in
     ni = torch.tensor(2.0, dtype=dtype, device=dev)
     F = cost(V)
     for _ in range(n_iters):
-        g, Hd, _, Ji, Jj = assemble(V)
+        g, Hd, Ji, Jj = assemble(V)
         g = g * update
         M = torch.linalg.inv_ex(Hd + (lam + 1e-8) * eye7)[0]
 

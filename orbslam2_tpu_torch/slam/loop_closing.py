@@ -26,8 +26,12 @@ first (:397-409); an aborted solve is discarded.
     spanning-tree propagation.
 
 Host map admin is numpy under the map lock; matching and solving run on
-the device without it, as in the JAX package. Not ported here: the device
-mesh (`mesh`, `_dist_*`). The JAX package's fixed shapes go: tables are
+the device without it, as in the JAX package. With a mesh of more than
+one shard (`mesh`, `parallel/mesh.py`) the two whole-map passes are
+sharded: the essential graph over its edges (`dist_posegraph`) and the
+global BA over its point rows (`dist_ba`, the JAX package's 5 + 10
+iterations, not interruptible: an abort is honoured once the solve
+returns). The JAX package's fixed shapes go: tables are
 uploaded at their true length, and every consistent candidate is matched
 (its fixed-shape path keeps 8). Two faults of the JAX package are not
 carried: loop fusion sizes its rows from the frustum selection (the JAX
@@ -50,6 +54,7 @@ from .. import convert
 from ..config import SlamConfig
 from ..geometry import sim3 as sim3_mod
 from ..ops import ba, matchers, pnp, posegraph, sim3solve
+from ..parallel import dist_ba, dist_posegraph
 from .ba_assembly import apply_pm_result, assemble_pm_problem
 from .frontend import Frontend
 from .map import SlamMap
@@ -75,7 +80,7 @@ def _np_sim3(S) -> Sim3Np:
 
 class LoopCloser:
     def __init__(self, config: SlamConfig, frontend: Frontend, slam_map: SlamMap,
-                 relocalizer: Relocalizer, local_mapper=None, fix_scale: bool = True):
+                 relocalizer: Relocalizer, local_mapper=None, fix_scale: bool = True, mesh=None):
         self.config = config
         self.frontend = frontend
         self.device = frontend.device
@@ -84,6 +89,11 @@ class LoopCloser:
         self.reloc = relocalizer  # owns the vocabulary and the database
         self.local_mapper = local_mapper
         self.fix_scale = fix_scale
+        #: the device mesh of the whole-map passes; a 1-shard mesh takes the
+        #: single-device path (JAX slam/loop_closing.py:80)
+        self.mesh = mesh if (mesh is not None and mesh.size > 1) else None
+        self._dist_pg = None  # the sharded solvers, built at first use
+        self._dist_gba = None
         self.consistent_groups: List[Tuple[Set[int], int]] = []
         self.last_loop_kf = -MIN_LOOP_GAP
         self.n_loops_closed = 0
@@ -765,7 +775,12 @@ class LoopCloser:
             edge_valid=torch.ones(E, dtype=torch.bool, device=self.device),
             fixed=t(np.array([k == self._matched_kf for k in kfs]), torch.bool),
         )
-        V_opt, _ = posegraph.optimize_essential_graph(prob, fix_scale=self.fix_scale)
+        if self.mesh is not None:
+            if self._dist_pg is None:
+                self._dist_pg = dist_posegraph.make_distributed_posegraph(self.mesh, fix_scale=self.fix_scale)
+            V_opt, _ = self._dist_pg(prob)
+        else:
+            V_opt, _ = posegraph.optimize_essential_graph(prob, fix_scale=self.fix_scale)
         R_opt, t_opt, s_opt = (x.cpu().numpy() for x in V_opt)
 
         with self.lock:
@@ -799,9 +814,11 @@ class LoopCloser:
         """Full-map BA (reference RunGlobalBundleAdjustment, LoopClosing.
         cpp:607-758): the problem assembled from the map under the lock,
         solved on the device without it (10 + 15 LM iterations, 40 PCG
-        steps: the JAX package's schedule; the solve polls `_gba_stop`),
-        applied under the lock with spanning-tree propagation to whatever
-        the tracker added meanwhile, or discarded if it was aborted."""
+        steps: the JAX package's schedule; the solve polls `_gba_stop`; on
+        a mesh 5 + 10 and 20, sharded, with `_gba_stop` read once it
+        returns), applied under the lock with spanning-tree propagation to
+        whatever the tracker added meanwhile, or discarded if it was
+        aborted."""
         m = self.map
         if not self._lock_unless_stopped():
             return
@@ -818,9 +835,15 @@ class LoopCloser:
         if prob is None:
             return
         self._note(gba_keyframes=len(kfs), gba_points=len(pts), gba_edges=int(prob.edge_valid.sum()))
-        res = ba.ba_solve_pm_interruptible(convert.ba_problem_pm_to_torch(prob, self.device), self._cam,
-                                           n_iters_first=10, n_iters_second=15, sync_every=5, n_cg=40,
-                                           should_abort=lambda: self._gba_stop)
+        if self.mesh is not None:
+            if self._dist_gba is None:
+                self._dist_gba = dist_ba.make_distributed_ba_pm(self.mesh, self._cam, n_iters_first=5,
+                                                                n_iters_second=10)
+            res = self._dist_gba(prob)
+        else:
+            res = ba.ba_solve_pm_interruptible(convert.ba_problem_pm_to_torch(prob, self.device), self._cam,
+                                               n_iters_first=10, n_iters_second=15, sync_every=5, n_cg=40,
+                                               should_abort=lambda: self._gba_stop)
         if self._gba_stop or not self._lock_unless_stopped():
             # aborted by a newer correction or a reset: discarded (the
             # reference returns without updating, LoopClosing.cpp:641-654)

@@ -23,11 +23,13 @@ System.cpp:66-70, LoopClosing.cpp:566-570). A monocular System closes
 loops with a free scale (Sim3, `fix_scale=False`). With `use_viewer=True`
 a headless `Viewer` renders both views on a thread of its own (reference
 System.cpp:72-77). `save_map` / `load_map` checkpoint the map in the JAX
-package's npz format. A device mesh is not ported yet and raises, naming
-its ROADMAP item.
+package's npz format. With `mesh` (`parallel/mesh.py`) the loop closer
+shards its whole-map passes, the essential graph and the global BA, over
+the mesh's devices; tracking and mapping stay on `device`.
 
     system = System("assets/vocab_generic.npz", cfg)
     system = System("assets/vocab_generic.npz", cfg, sensor=Sensor.MONOCULAR)
+    system = System("assets/vocab_generic.npz", cfg, mesh=make_mesh(2))
 """
 
 from __future__ import annotations
@@ -56,10 +58,6 @@ class Sensor:
     MONOCULAR = "monocular"
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
-
-
 class System:
     """The port's analog of the reference's ORB_SLAM_CUSTOM::System."""
 
@@ -72,14 +70,12 @@ class System:
         enable_loop_closing: bool = True,
         deferred_mapping: bool = False,
         threaded: bool = False,
-        mesh=None,
+        mesh=None,  # parallel.mesh.Mesh: shard the whole-map passes (global BA, essential graph)
         *,
         device="cuda",
     ):
         if sensor not in (Sensor.STEREO, Sensor.MONOCULAR):
             raise ValueError(f"unknown sensor {sensor!r}")
-        if mesh is not None:
-            raise _not_ported("multi-device execution", "multi-GPU")
         self.sensor = sensor
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -108,7 +104,7 @@ class System:
             if enable_loop_closing:
                 self.loop_closer = LoopCloser(self.config, self.frontend, self.map, reloc,
                                               local_mapper=self.local_mapper,
-                                              fix_scale=(sensor != Sensor.MONOCULAR))
+                                              fix_scale=(sensor != Sensor.MONOCULAR), mesh=mesh)
                 self.local_mapper.on_processed = self.loop_closer.insert_keyframe
                 self.loop_closer.on_pose_jump = self.tracker.apply_pose_jump
             else:

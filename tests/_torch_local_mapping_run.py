@@ -1,0 +1,153 @@
+"""One run of the local-mapping parity sequence, shared by
+tests/test_torch_local_mapping.py and tests/test_torch_local_mapping_jax.py.
+
+The world of tests/test_local_mapping.py (seed 11, 1200 features): the
+JAX package's tracker with its local mapper through frame 28, the port's
+through all 45 frames, then 6 frames in localization mode; on the map of
+frame 28 each package relocalizes the kidnapped view of frame 16 with the
+same vocabulary (the JAX package's `vocab/train.py`, k = 8, depth 3, as
+tests/test_relocalization.py trains it, carried across with
+`convert.vocabulary_to_torch`). `relocalize` changes only the frame it is
+given, so the port's tracker runs on undisturbed.
+
+The two files hold 4 and 2 tests, so xdist's `--dist loadfile` queue
+puts them after tests/test_mesh_loop.py; the run is made once per session
+all the same: the first file to need it makes it under a file lock in the
+session's temporary directory (shared by the xdist workers) and leaves
+its results there as plain data, and the other reads them.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import os
+import pickle
+
+import numpy as np
+from _torch_parity import slam_config
+
+N_FRAMES = 45
+N_PARITY = 29  # frames 0..28: the second local BA runs on frame 28
+KIDNAPPED = 16  # the view shown to both relocalizers on frame 28's map
+N_LOCALIZATION = 6  # frames tracked in localization mode after frame 44
+
+
+def center(T):
+    return -T[:3, :3].T.astype(np.float64) @ T[:3, 3]
+
+
+def _pair(cfg_module, frontend_cls, map_cls, tracker_cls, mapper_cls, world, **kw):
+    cfg = slam_config(world, cfg_module)
+    frontend = frontend_cls(cfg, **kw)
+    slam_map = map_cls(cfg.orb.n_features)
+    tracker = tracker_cls(cfg, frontend, slam_map)
+    tracker.local_mapper = mapper_cls(cfg, frontend, slam_map)
+    return tracker
+
+
+def _train_vocabulary(slam_map):
+    """tests/test_relocalization.py's vocabulary: k = 8, depth 3, from the
+    first 400 valid descriptors of every keyframe."""
+    from orbslam2_tpu.vocab import train
+
+    descs, docs = [], []
+    for kf in sorted(slam_map.kf_valid):
+        f = slam_map.kf_frame[kf]
+        d = f.desc[f.valid][:400]
+        descs.append(np.ascontiguousarray(d).view(np.uint8))
+        docs.append(np.full(len(d), kf))
+    return train.train_vocabulary(np.concatenate(descs), k=8, depth=3, doc_ids=np.concatenate(docs))
+
+
+def _relocalize(reloc_cls, frame_cls, tracker, vocab, frame_images, frame_id):
+    """Index every keyframe of the tracker's map, then relocalize the view:
+    (database candidates, relocalized Tcw or None, whether the last
+    attempt was accepted)."""
+    reloc = reloc_cls(tracker.config, tracker.frontend, tracker.map, vocab)
+    for kf in sorted(tracker.map.kf_valid):
+        reloc.add_keyframe(kf)
+    frame = frame_cls(tracker.frontend.process(*frame_images), 99.0, frame_id)
+    words, vec = reloc.compute_bow(frame.desc, frame.valid)
+    cands = reloc.database.detect_relocalization_candidates(words, vec, tracker.map)
+    ok = reloc.relocalize(frame)
+    accepted = bool(reloc.trace[-1]["ok"] and reloc.trace[-1]["cands"][-1]["stage"] == "accepted") \
+        if reloc.trace else False
+    return list(cands), (np.asarray(frame.Tcw) if ok else None), accepted
+
+
+def _run():
+    from orbslam2_tpu import config as jax_config
+    from orbslam2_tpu.slam.frontend import FrameHost as JaxFrameHost
+    from orbslam2_tpu.slam.frontend import Frontend as JaxFrontend
+    from orbslam2_tpu.slam.local_mapping import LocalMapper as JaxMapper
+    from orbslam2_tpu.slam.map import SlamMap as JaxMap
+    from orbslam2_tpu.slam.relocalization import Relocalizer as JaxRelocalizer
+    from orbslam2_tpu.slam.tracking import Tracker as JaxTracker
+    from orbslam2_tpu_torch import config as torch_config
+    from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
+    from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
+    from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
+    from orbslam2_tpu_torch.slam.map import SlamMap
+    from orbslam2_tpu_torch.slam.relocalization import Relocalizer
+    from orbslam2_tpu_torch.slam.tracking import Tracker
+
+    world = SyntheticWorld(n_points=900, seed=11, baseline=0.2)
+    poses_gt, frames = world.render_sequence(N_FRAMES + N_LOCALIZATION, step=0.06)
+    jt = _pair(jax_config, JaxFrontend, JaxMap, JaxTracker, JaxMapper, world)
+    jax_out = []
+    for i, (imL, imR) in enumerate(frames[:N_PARITY]):
+        T = jt.track(imL, imR, i / 20.0)
+        jax_out.append((jt.state.name, None if T is None else np.asarray(T), jt.map.n_keyframes()))
+    voc = _train_vocabulary(jt.map)
+    jax_reloc = _relocalize(JaxRelocalizer, JaxFrameHost, jt, voc, frames[KIDNAPPED], N_PARITY)
+    tt = _pair(torch_config, Frontend, SlamMap, Tracker, LocalMapper, world, device="cpu")
+    port_out, n_ba = [], []
+    for i, (imL, imR) in enumerate(frames[:N_FRAMES]):
+        T = tt.track(imL, imR, i / 20.0)
+        port_out.append((tt.state.name, T, tt.map.n_keyframes()))
+        n_ba.append(tt.local_mapper.n_local_ba)
+        if i == N_PARITY - 1:
+            port_reloc = _relocalize(Relocalizer, FrameHost, tt, convert.vocabulary_to_torch(voc, "cpu"),
+                                     frames[KIDNAPPED], N_PARITY)
+    m, lm = tt.map, tt.local_mapper
+    mapping = dict(
+        state=tt.state.name, n_processed=lm.n_processed, n_created=lm.n_created,
+        multi_obs=sum(1 for p in m.pt_valid if len(m.pt_obs[p]) >= 2),
+        # per keyframe: (covisibility neighbours, spanning-tree parent)
+        covis={int(kf): (bool(m.covis.get(kf)), kf in m.parent) for kf in m.kf_valid},
+    )
+    # localization mode: mapping stopped, visual-odometry points
+    n_kf, n_pts = m.n_keyframes(), len(m.pt_valid)
+    tt.only_tracking = True
+    lm.request_stop()
+    loc_out = []
+    for i in range(N_FRAMES, N_FRAMES + N_LOCALIZATION):
+        T = tt.track(*frames[i], i / 20.0)
+        loc_out.append((tt.state.name, T, len(tt.last_frame.temp_points), tt._can_fuse()))
+    localization = dict(out=loc_out, n_kf=(n_kf, m.n_keyframes()), n_pts=(n_pts, len(m.pt_valid)))
+    return dict(jax_out=jax_out, port_out=port_out, n_ba=n_ba, mapping=mapping, poses_gt=poses_gt[:N_FRAMES],
+                poses_loc=poses_gt[N_FRAMES:], reloc=(jax_reloc, port_reloc), localization=localization)
+
+
+def shared_runs(tmp_path_factory) -> dict:
+    """The run's results, made by the first caller of this session and read
+    by the others (the xdist workers of one session share the parent of
+    their temporary directories)."""
+    base = tmp_path_factory.getbasetemp()
+    where = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = where / "torch_local_mapping_run.pkl"
+    with open(where / "torch_local_mapping_run.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            runs = _run()
+            part = path.with_suffix(".part")
+            with open(part, "wb") as f:
+                pickle.dump(runs, f)
+            os.replace(part, path)
+            return runs
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)

@@ -6,14 +6,18 @@ run_synthetic on 3 rendered frames.
 Stated bars: each returns 0; every frame tracked; the TUM timestamps
 within 5e-4 s of the ns list; ATE RMSE < 0.06 m (the slice's bar); the
 reference's output files written (a 12-column KITTI line per frame); the
-usage text and return code 2 with too few arguments; `--mesh` raises,
-naming the ROADMAP item.
+usage text and return code 2 with too few arguments; `--mesh` is
+refused without `--loop` (nothing else takes the mesh), and `--loop
+--mesh N` fails before any work when fewer than N cards are visible, with
+no fallback to the CPU. The sharded solves themselves, through the loop
+closer and `System(mesh=...)`, are held in tests/test_torch_mesh_system.py.
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from orbslam2_tpu_torch import config as C
 from orbslam2_tpu_torch.datasets import euroc, kitti
@@ -94,5 +98,9 @@ def test_run_synthetic(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "tracked 3/3 frames" in printed and "device: cpu" in printed
     assert os.path.getsize(os.path.join(out, "map_final.png")) > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_synthetic.main(["--mesh", "2", "--cpu"])
+    with pytest.raises(SystemExit) as refused:
+        run_synthetic.main(["--frames", "3", "--cpu", "--mesh", "2"])
+    assert refused.value.code == 2 and "needs --loop" in capsys.readouterr().err
+    n = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"needs {n + 1} CUDA devices; {n} visible"):
+        run_synthetic.main(["--frames", "3", "--loop", "--mesh", str(n + 1)])

@@ -3,6 +3,7 @@ the JAX package's JAX-free modules equal their originals, and its kernel
 wrappers choose their path by the device of the tensor they are given."""
 
 import ast
+import concurrent.futures
 import dataclasses
 import os
 import re
@@ -29,7 +30,8 @@ from orbslam2_tpu_torch.vocab import bow
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("module", [
+#: the module groups checked by `test_imports_without_jax`
+IMPORT_GROUPS = [
     "orbslam2_tpu_torch.slam.system",
     "orbslam2_tpu_torch.slam.local_mapping",
     "orbslam2_tpu_torch.datasets.synthetic",
@@ -46,20 +48,35 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     "orbslam2_tpu_torch.drivers.run_euroc, orbslam2_tpu_torch.drivers.run_kitti, "
     "orbslam2_tpu_torch.drivers.run_synthetic, orbslam2_tpu_torch.evaluation.associate, "
     "orbslam2_tpu_torch.evaluation.analyze, orbslam2_tpu_torch.vocab.train",
-])
-def test_imports_without_jax(module):
-    """Each module imports with JAX, the JAX package, OpenCV, matplotlib and
-    PIL blocked, and loads none of them."""
-    blocked = ("jax", "orbslam2_tpu", "cv2", "matplotlib", "PIL")
+    "orbslam2_tpu_torch.parallel.mesh, orbslam2_tpu_torch.parallel.dist_ba, "
+    "orbslam2_tpu_torch.parallel.dist_posegraph, orbslam2_tpu_torch.parallel.multihost",
+]
+BLOCKED = ("jax", "orbslam2_tpu", "cv2", "matplotlib", "PIL")
+
+
+def _import_blocked(module):
     code = (
-        f"import sys; blocked = {blocked!r}; sys.modules.update(dict.fromkeys(blocked)); "
+        f"import sys; blocked = {BLOCKED!r}; sys.modules.update(dict.fromkeys(blocked)); "
         f"import {module}; "
         "bad = [m for m, v in sys.modules.items() if v is not None and "
         "(m in blocked or m.startswith(tuple(b + '.' for b in blocked)))]; "
         "print('ok' if not bad else bad)"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+
+
+@pytest.fixture(scope="module")
+def blocked_imports():
+    """Every group imported in a fresh interpreter of its own, 4 at a time."""
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        return dict(zip(IMPORT_GROUPS, pool.map(_import_blocked, IMPORT_GROUPS)))
+
+
+@pytest.mark.parametrize("module", IMPORT_GROUPS)
+def test_imports_without_jax(module, blocked_imports):
+    """Each module imports with JAX, the JAX package, OpenCV, matplotlib and
+    PIL blocked, and loads none of them."""
+    out = blocked_imports[module]
     assert out.returncode == 0 and out.stdout.strip() == "ok", (out.stdout, out.stderr)
 
 

@@ -7,7 +7,10 @@ DBoW2 scores are within 1e-6 of the JAX package's, on the inputs of
 tests/test_vocab.py's scoring tests (the same vocabulary, places and
 norms): absolute for the scores of normalized vectors, relative for the
 unnormalized dot product (~349 here, where one float32 step is 3e-5 and
-the two packages sum in different orders).
+the two packages sum in different orders). The DBoW2 text parser: a text
+file of the trained vocabulary parses to the JAX package's native
+parser's arrays bit for bit, and loads to the trained tables and to the
+JAX package's loader's, through its native parser and its Python loop.
 """
 
 import jax.numpy as jnp
@@ -95,3 +98,44 @@ def test_bow_vector_ignores_invalid_words(vocabs):
     assert float(v[0]) == float(2 * w[0]) and float(v[3]) == float(w[3])
     assert int((v != 0).sum()) == 2
     assert float(bow.bow_vector(voc, torch.full((3,), -1, dtype=torch.int32)).abs().sum()) == 0.0
+
+
+def _write_dbow2_text(path, voc):
+    """`voc` in DBoW2's text format (TemplatedVocabulary.h:1382-1416), its
+    nodes in id order, each weight with 9 significant digits (exact for
+    float32)."""
+    ci, cd = np_of(voc.children_idx), np_of(voc.children_desc).view(np.uint8).reshape(*voc.children_idx.shape, 32)
+    nw, ww = np_of(voc.node_word), np_of(voc.word_weight)
+    parent, desc = np.full(len(nw), -1), np.zeros((len(nw), 32), np.uint8)
+    for node, row in enumerate(ci):
+        for slot in np.nonzero(row >= 0)[0]:
+            parent[row[slot]], desc[row[slot]] = node, cd[node, slot]
+    lines = [f"{voc.k} {voc.depth} 0 0"]
+    for node in range(1, len(nw)):
+        w = ww[nw[node]] if nw[node] >= 0 else 0.0
+        lines.append(f"{parent[node]} {int(nw[node] >= 0)} {' '.join(map(str, desc[node]))} {w:.9g}")
+    path.write_text("\n".join(lines) + "\n")
+
+
+def test_dbow2_text_parser_equals_native_and_python(vocabs, tmp_path, monkeypatch):
+    """The port's one-pass numpy parser of a DBoW2 text file of the trained
+    vocabulary: its arrays equal, dtype and bits, to the JAX package's
+    native parser (native/src/vocab_parse.cc); the vocabulary it loads
+    equal to the trained one and to the JAX package's loader through its
+    native parser and through its Python loop."""
+    from orbslam2_tpu import native
+
+    voc = vocabs[0]
+    path = tmp_path / "voc.txt"
+    _write_dbow2_text(path, voc)
+    got = bow.parse_dbow2_text(str(path))
+    want = native.parse_vocabulary_text(str(path))
+    assert want is not None and got[:2] == want[:2] == (voc.k, voc.depth)
+    for a, b in zip(got[2:], want[2:]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    loaded = bow.load_dbow2_text(str(path), "cpu")
+    for name in ("children_desc", "children_idx", "node_word", "word_weight"):
+        assert torch.equal(getattr(loaded, name), getattr(voc, name)), name
+    _same_tables(loaded, jbow.load_dbow2_text(str(path)))
+    monkeypatch.setattr(native, "_lib", None)  # the JAX package's Python loop
+    _same_tables(loaded, jbow.load_dbow2_text(str(path)))
