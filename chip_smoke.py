@@ -18,7 +18,10 @@ PyTorch built for CUDA. It
      tie-heavy 1200x1200 masks; holds the BoW tree-descent kernel K4
      against its plain version on its edge cases (trees numbered
      depth-first, deeper and shallower than its staged levels, leaves
-     inside them) and prints the levels it stages; times the wrapper and
+     inside them) and prints the levels it stages; holds the pose LM
+     kernel K5 against its plain version on its edge cases (inlier masks
+     and counts equal, the pose within 1e-6) and the keypoint selection
+     kernel K6 exactly on its edge cases; times the wrapper and
      the plain version with CUDA events around back-to-back calls; and
      computes each kernel's bound (bytes or operations at the published
      peaks) from the inputs;
@@ -44,7 +47,13 @@ PyTorch built for CUDA. It
      the database holds every live keyframe and K4 launched once per
      processed keyframe; holds each K3 mode, and K4 on one indexed
      keyframe's descriptors, exactly against its plain version on the
-     recorded arguments and times it there;
+     recorded arguments and times it there; records every
+     pose_optimize and select_keypoints_levels call of the slice, checks
+     that K5 launched twice on every fused frame and K6 twice (its cell
+     pass and its top-k pass) on every frame, holds K6 exactly against its
+     plain version on every level of every frame and K5 as on its edge
+     cases on every call (and a replay of each K5 call equal to its
+     main-path launch bit for bit), and times both there;
   5. relocalization, on the same system: 3 black frames (the tracker goes
      LOST without a reset, each attempt ends at `db_candidates`), then
      frame 16's view (relocalized within 0.1 m of the ground truth), then
@@ -167,8 +176,8 @@ PyTorch built for CUDA. It
      run on every shard, ATE RMSE < 0.45 m (that test's bar), K1-K4
      launched;
   10. prints each phase's wall time, one JSON line of the phases' results,
-     one JSON line describing the kernels (one row per K3 mode and
-     caller, and K4), then the result line.
+     one JSON line describing the kernels (K1, K2, one row per K3 mode
+     and caller, K4, K5 and K6), then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
 CUDA card is visible, or when the port cannot be imported.
@@ -202,8 +211,8 @@ from orbslam2_tpu_torch.evaluation.ate import ate_rmse
 from orbslam2_tpu_torch.kernels import build, cases
 from orbslam2_tpu_torch.geometry import sim3, triangulation
 from orbslam2_tpu_torch.geometry.camera import Camera
-from orbslam2_tpu_torch.ops import (ba, fast, hamming, initializer, mlpnp, orb, patches, pnp, posegraph, sim3solve,
-                                    undistort)
+from orbslam2_tpu_torch.ops import (ba, fast, hamming, initializer, mlpnp, orb, patches, pnp, pose_opt, posegraph,
+                                    sim3solve, undistort)
 from orbslam2_tpu_torch.parallel import dist_ba, dist_posegraph, multihost
 from orbslam2_tpu_torch.parallel.mesh import Mesh, make_mesh
 from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
@@ -252,6 +261,18 @@ K3_SOURCE = "orbslam2_tpu_torch/csrc/hamming_best2.cu"
 # words; per visited node its k child rows (32 B) and ids (4 B)
 K4_OPS_PER_CHILD = 24
 K4_BYTES_PER_CHILD = 36
+# K5, per edge, counted from csrc/pose_lm.cu (a multiply-add counts 2): an
+# LM pass (`accumulate`: `project`'s pose, 1/z, residual and chi2, 40; the
+# Huber weight and F, 12; the Jacobian rows, 10; per component its weight,
+# the cross product, -r, and the 21 + 6 products into H and g, 71) and a
+# reclassification (`project` and the test, 45); float64, at the data
+# sheet's float64 rate outside the tensor cores
+K5_OPS_PER_EDGE_PASS = 40 + 12 + 10 + 3 * 71
+K5_OPS_PER_EDGE_CLASSIFY = 45
+FP64_OPS_PER_S = 34e12
+# K6, per pixel: the threshold, fallback and border tests, the key's
+# quantization, clamp and packing, the cell maximum
+K6_OPS_PER_PX = 15
 # name -> the kernel's name in the profiler's trace (a K3 mode is the
 # instantiation over its gate functor) and the TPU-side function it replaces
 KERNELS = {
@@ -281,6 +302,11 @@ KERNELS = {
                                            replaces="orbslam2_tpu/slam/loop_closing.py:922", path="loop"),
     "hamming_best2:mask:mono_init": dict(kernel="GateMask", source=K3_SOURCE,
                                          replaces="orbslam2_tpu/slam/tracking.py:630", path="mono"),
+    "pose_lm": dict(kernel="pose_lm_kernel", source="orbslam2_tpu_torch/csrc/pose_lm.cu",
+                    replaces="orbslam2_tpu/ops/pose_opt.py:193"),
+    # two kernels a call: the cell pass and the top-k pass
+    "select_keypoints": dict(kernel="select_keypoints_", source="orbslam2_tpu_torch/csrc/select_keypoints.cu",
+                             replaces="orbslam2_tpu/ops/orb.py:206", per_call=2),
 }
 # K3's rows: the tracker's modes, then the mapper's (mask mode under its
 # caller epipolar_match); the relocalizer's mask row is recorded on its path
@@ -336,7 +362,8 @@ DISTORTION = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359, p2=1.76187114e-0
 def launch_counts() -> dict:
     """Every kernel's launch counter, by KERNELS name."""
     c = {"fast_nms": fast.fast_nms_levels.launches, "orb_patch_desc": patches.orb_patch_desc_levels.launches,
-         "bow_transform": bow.transform_words_nodes.launches}
+         "bow_transform": bow.transform_words_nodes.launches, "pose_lm": pose_opt.pose_optimize.launches,
+         "select_keypoints": orb.select_keypoints_levels.launches}
     c.update({f"hamming_best2:{row}": hamming.best2.launches[caller] for caller, row in MASK_ROWS.items()})
     c.update({f"hamming_best2:{m}": n for m, n in hamming.best2_gated.launches.items()})
     return c
@@ -346,6 +373,8 @@ def reset_launch_counts():
     fast.fast_nms_levels.launches = 0
     patches.orb_patch_desc_levels.launches = 0
     bow.transform_words_nodes.launches = 0
+    pose_opt.pose_optimize.launches = 0
+    orb.select_keypoints_levels.launches = 0
     for counts in (hamming.best2.launches, hamming.best2_gated.launches):
         for k in counts:
             counts[k] = 0
@@ -412,18 +441,20 @@ def level_inputs(images: torch.Tensor, params: orb.OrbParams):
     return levels, xs_l, ys_l
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(ms, "bytes" or "operations"): the least time the card could take to
-    move `nbytes` and do `ops` operations, at the published H100 SXM peaks."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    move `nbytes` and do `ops` operations, at the published H100 SXM peaks
+    (the operations at `ops_per_s`, float32's unless given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Device-only milliseconds of one launch of `kernel` made by fn(): the
-    median of its `torch.profiler` durations over `reps` calls, one
-    profiler session per call. A session whose trace lost the launch is
-    skipped; at least half of them must show it."""
+def device_ms(fn, kernel: str, reps: int = 20, per_call: int = 1) -> float:
+    """Device-only milliseconds of one call fn(), which launches `per_call`
+    kernels whose names hold `kernel`: the median over `reps` calls, one
+    profiler session per call, of the sum of their `torch.profiler`
+    durations. A session whose trace lost a launch is skipped; at least
+    half of them must show every one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -436,10 +467,31 @@ def device_ms(fn, kernel: str, reps: int = 20) -> float:
             torch.cuda.synchronize()
         seen = [e.time_range.elapsed_us() for e in prof.events()
                 if e.device_type == DeviceType.CUDA and kernel in e.name]
-        check(len(seen) <= 1, f"one call launched {kernel} {len(seen)} times")
-        durs += seen
-    check(2 * len(durs) >= reps, f"profiler saw {len(durs)} of {reps} launches of {kernel}")
+        check(len(seen) <= per_call, f"one call launched {kernel} {len(seen)} times, not {per_call}")
+        if len(seen) == per_call:
+            durs.append(sum(seen))
+    check(2 * len(durs) >= reps, f"profiler saw all {per_call} launches of {kernel} in {len(durs)} of {reps} calls")
     return statistics.median(durs) / 1e3
+
+
+@contextlib.contextmanager
+def patched(owner, name: str, wrap):
+    """Replaces owner.<name> by wrap(original) inside. A kernel wrapper
+    counts its launches through its module's global name, which is the
+    replacement while patched, so its `launches` counter carries over both
+    ways."""
+    orig = getattr(owner, name)
+    new = wrap(orig)
+    counted = hasattr(orig, "launches")
+    if counted:
+        new.launches = orig.launches
+    setattr(owner, name, new)
+    try:
+        yield new
+    finally:
+        setattr(owner, name, orig)
+        if counted:
+            orig.launches = new.launches
 
 
 # Each check_* holds a kernel against its plain version and returns
@@ -644,6 +696,121 @@ def k4_stagings(voc, call, levels=(2, 3)):
                          KERNELS["bow_transform"]["kernel"]) for L in levels}
 
 
+def check_k5_pair(got, want, what):
+    """K5's result against the plain version's on one call: the same inlier
+    mask and count, the pose within 1e-6. Returns (pose gap, bit-identical)."""
+    torch.cuda.synchronize()
+    check(torch.equal(got.inlier, want.inlier), f"pose_lm inlier mask differs from plain on {what}")
+    check(int(got.n_inliers) == int(want.n_inliers),
+          f"pose_lm n_inliers {int(got.n_inliers)} != plain {int(want.n_inliers)} on {what}")
+    gap = float((got.Tcw - want.Tcw).abs().max())
+    check(gap <= 1e-6, f"pose_lm pose differs from plain by {gap} on {what}")
+    return gap, torch.equal(got.Tcw, want.Tcw)
+
+
+def check_k5_edge_cases():
+    """K5 against its plain version on the edge cases of `kernels/cases.py`."""
+    out = []
+    for name, args, cam in cases.k5_cases("cuda"):
+        gap, same = check_k5_pair(pose_opt.pose_optimize(*args, cam), pose_opt.pose_optimize_plain(*args, cam), name)
+        out.append(f"{name}: {'bit-identical' if same else f'gap {gap:.2e}'}")
+    print(f"K5 pose_lm: inliers equal and pose within 1e-6 of plain on {len(out)} edge cases ({'; '.join(out)})")
+
+
+def k5_bound(args):
+    """Bound of one K5 call: its inputs read once and its outputs written
+    once; K5_OPS_PER_EDGE_PASS float64 operations per edge for each of the
+    4 x (1 + 10) LM passes and K5_OPS_PER_EDGE_CLASSIFY for each of the 4
+    reclassifications (the schedule's length is fixed)."""
+    n = args[1].shape[0]
+    nbytes = 64 + n * (12 + 12 + 4 + 1 + 1) + 64 + n + 4
+    ops = n * (4 * 11 * K5_OPS_PER_EDGE_PASS + 4 * K5_OPS_PER_EDGE_CLASSIFY)
+    return bound(nbytes, ops, FP64_OPS_PER_S)
+
+
+def check_k5_main_path(calls):
+    """K5 against its plain version on every recorded pose_optimize call of
+    the slice ((args, kwargs, result)): the same inlier masks and counts,
+    the pose within 1e-6; a replay of the kernel equals the main path's
+    launch bit for bit (fixed-order sums). Timed on the last call. Returns
+    (max_abs_err, times, bound, timed call)."""
+    check(len(calls) > 0, "no pose_optimize call was recorded on the slice")
+    worst, n_same = 0.0, 0
+    for i, (args, kwargs, res) in enumerate(calls):
+        got = pose_opt.pose_optimize(*args, **kwargs)
+        gap, same = check_k5_pair(got, pose_opt.pose_optimize_plain(*args, **kwargs), f"slice call {i}")
+        check(torch.equal(got.Tcw, res.Tcw) and torch.equal(got.inlier, res.inlier),
+              f"pose_lm: a replay of slice call {i} differs from its main-path launch")
+        worst, n_same = max(worst, gap), n_same + same
+    args, kwargs, _ = calls[-1]
+    call = functools.partial(pose_opt.pose_optimize, *args, **kwargs)
+    timing = dict(ms=cuda_ms(call), plain_ms=cuda_ms(functools.partial(pose_opt.pose_optimize_plain, *args, **kwargs),
+                                                     reps=5, batch=2))
+    print(f"K5 pose_lm: inliers equal and pose within 1e-6 of plain on all {len(calls)} pose_optimize calls of the "
+          f"slice, {n_same} bit-identical, max gap {worst:.3e}; replays equal the main path's launches; timed on "
+          f"the last ({int(args[5].sum())} of {args[1].shape[0]} edges valid)")
+    return worst, timing, k5_bound(args), call
+
+
+def check_k6_edge_cases():
+    """K6 exactly against its plain version on the edge cases of `kernels/cases.py`."""
+    names = []
+    for name, scores, budgets in cases.k6_cases("cuda"):
+        got = orb.select_keypoints_levels(scores, budgets, 20.0, 7.0)
+        want = orb.select_keypoints_levels_plain(scores, budgets, 20.0, 7.0)
+        torch.cuda.synchronize()
+        for g, w, label in zip(got, want, ("xs", "ys", "resp", "valid")):
+            check(all(torch.equal(a, b) for a, b in zip(g, w)), f"select_keypoints {label} differ from plain ({name})")
+        names.append(name)
+    print(f"K6 select_keypoints: exact on {len(names)} edge cases ({'; '.join(names)})")
+
+
+def check_k6_main_path(calls):
+    """K6 exactly against its plain version on every level of every frame
+    of the slice (the recorded K2 scores of each extract call); timed on
+    REC_FRAME's. Returns (max_abs_err, times, bound, timed call)."""
+    check(len(calls) >= N_FRAMES, f"{len(calls)} select_keypoints calls recorded over {N_FRAMES} frames")
+    for i, (args, kwargs, _) in enumerate(calls):
+        got = orb.select_keypoints_levels(*args, **kwargs)
+        want = orb.select_keypoints_levels_plain(*args, **kwargs)
+        torch.cuda.synchronize()
+        for g, w, label in zip(got, want, ("xs", "ys", "resp", "valid")):
+            check(all(torch.equal(a, b) for a, b in zip(g, w)), f"select_keypoints {label} differ from plain on "
+                                                                f"call {i}")
+    args, kwargs, _ = calls[REC_FRAME]
+    scores, budgets = args[0], args[1]
+    call = functools.partial(orb.select_keypoints_levels, *args, **kwargs)
+    timing = dict(ms=cuda_ms(call), plain_ms=cuda_ms(functools.partial(orb.select_keypoints_levels_plain, *args,
+                                                                       **kwargs)))
+    px = sum(t.numel() for t in scores)
+    nbytes = 4 * px + scores[0].shape[0] * sum(budgets) * (4 + 4 + 4 + 1)
+    print(f"K6 select_keypoints: exact on every level of all {len(calls)} calls of the slice ({len(scores)} levels x "
+          f"{scores[0].shape[0]} images, {px} px each)")
+    return 0.0, timing, bound(nbytes, K6_OPS_PER_PX * px), call
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(a) for a in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(a) for a in x)
+    return x
+
+
+def call_recorder(owner, name: str, sink: list):
+    """Records (args, kwargs, result) of every call of owner.<name> made
+    inside, cloned, into `sink` (see `patched`)."""
+    def wrap(fn):
+        def recording(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sink.append((_clone(args), dict(kwargs), _clone(out)))
+            return out
+        return recording
+    return patched(owner, name, wrap)
+
+
 @contextlib.contextmanager
 def k3_recorder(sink, keep=lambda row: True):
     """Records every K3 call made inside whose row `keep` accepts, as (row,
@@ -685,13 +852,16 @@ def k3_recorder(sink, keep=lambda row: True):
 def run_slice(world, cfg, frames, device, record=()):
     """Track `frames`; returns (system, poses, ms per frame, launch counts
     per frame, fused flag per frame, recorded K3 calls, devices of the
-    local BA problems, the first local BA's (args, kwargs, result)). The K3
-    calls of the frames in `record`, and those of the mapper on the first
-    frame whose mapping pass launched both mapper rows, are recorded
-    ({frame: [(row, A, B, gate)]}); nothing is recorded when `record` is
-    empty."""
+    local BA problems, the first local BA's (args, kwargs, result), the
+    recorded K5 and K6 calls). The K3 calls of the frames in `record`, and
+    those of the mapper on the first frame whose mapping pass launched both
+    mapper rows, are recorded ({frame: [(row, A, B, gate)]}), and every
+    pose_optimize and select_keypoints_levels call ({"pose_lm": [(args,
+    kwargs, result)], "select_keypoints": [...]}); nothing is recorded when
+    `record` is empty."""
     system = System(VOCAB, cfg, enable_loop_closing=False, device=device)
     est, ms, per_frame, fused, calls, ba_devices, ba_calls = [], [], [], [], {}, [], []
+    recorded = {"pose_lm": [], "select_keypoints": []}
     solve = ba.ba_solve_pm_interruptible
     at = {"frame": 0, "mapping": None}
     sink = []
@@ -708,7 +878,11 @@ def run_slice(world, cfg, frames, device, record=()):
 
     ba.ba_solve_pm_interruptible = solve_seen
     try:
-        with k3_recorder(sink, keep) if record else contextlib.nullcontext():
+        with contextlib.ExitStack() as recorders:
+            if record:
+                recorders.enter_context(k3_recorder(sink, keep))
+                recorders.enter_context(call_recorder(pose_opt, "pose_optimize", recorded["pose_lm"]))
+                recorders.enter_context(call_recorder(orb, "select_keypoints_levels", recorded["select_keypoints"]))
             for i, (imL, imR) in enumerate(frames):
                 at["frame"] = i
                 fused.append(system.tracker._can_fuse())
@@ -725,7 +899,7 @@ def run_slice(world, cfg, frames, device, record=()):
                     calls[i] = frame_calls
     finally:
         ba.ba_solve_pm_interruptible = solve
-    return system, est, ms, per_frame, fused, calls, ba_devices, ba_calls[0] if ba_calls else None
+    return system, est, ms, per_frame, fused, calls, ba_devices, ba_calls[0] if ba_calls else None, recorded
 
 
 def cpu_path(cfg, frames):
@@ -924,13 +1098,14 @@ def profile_frames(system, frames, first):
 
     stages = [(Frontend, "features_body"), (pose_opt, "pose_optimize"),
               (matchers, "search_by_projection_frame"), (matchers, "search_by_projection_points")]
-    originals = [getattr(owner, name) for owner, name in stages]
 
-    def traced(fn, label):
-        def run(*a, **k):
-            with record_function(label):
-                return fn(*a, **k)
-        return run
+    def traced(label):
+        def wrap(fn):
+            def run(*a, **k):
+                with record_function(label):
+                    return fn(*a, **k)
+            return run
+        return wrap
 
     span = LocalMapper._span
 
@@ -940,10 +1115,10 @@ def profile_frames(system, frames, first):
         stack.enter_context(record_function(f"stage:{name}"))
         return stack
 
-    for (owner, name), fn in zip(stages, originals):
-        setattr(owner, name, traced(fn, f"stage:{name}"))
-    LocalMapper._span = traced_span
-    try:
+    with contextlib.ExitStack() as stack:
+        for owner, name in stages:
+            stack.enter_context(patched(owner, name, traced(f"stage:{name}")))
+        stack.enter_context(patched(LocalMapper, "_span", lambda orig: traced_span))
         mapped = system.local_mapper.n_processed
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -955,10 +1130,6 @@ def profile_frames(system, frames, first):
                     break
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-    finally:
-        for (owner, name), fn in zip(stages, originals):
-            setattr(owner, name, fn)
-        LocalMapper._span = span
     # device-side events, without the ranges' own GPU annotations
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not e.name.startswith("stage:")]
@@ -1917,7 +2088,8 @@ def run_checkpoint(system, frame39, tmp) -> dict:
     covisibility weights equal, each reloaded keyframe's device features
     `torch.equal` to the original's, and one K3 `mask` call through
     `search_by_bow` between frame 39 and a reloaded keyframe equal to the
-    call on the original keyframe. The original's covisibility weights are
+    call on the original keyframe; no observation by a culled keyframe in
+    the original. The original's covisibility weights are
     first refreshed from its observations under the map lock, as the
     loader derives them (the live map's weights date from each keyframe's
     last refresh); the slice's System is not used after this phase."""
@@ -1945,12 +2117,10 @@ def run_checkpoint(system, frame39, tmp) -> dict:
                   zip(m2.kf_frame[k].dev, m.kf_frame[k].dev)), f"checkpoint: keyframe {k}'s device features")
     pts = m.pt_ids()
     check(np.array_equal(m2.pt_pos[pts], m.pt_pos[pts]), "checkpoint: point positions differ")
-    # the file keeps the observations by live keyframes: the map's culling
-    # (SlamMap.remove_keyframe) leaves a culled keyframe's observation
-    # where the keyframe's point slot no longer names the point
-    live_obs = {int(p): {k: i for k, i in m.pt_obs[int(p)].items() if k in m.kf_valid} for p in pts}
-    stale = sum(len(m.pt_obs[p]) - len(o) for p, o in live_obs.items())
-    check(all(m2.pt_obs[p] == o for p, o in live_obs.items()), "checkpoint: observations differ")
+    # a culled keyframe leaves no observation behind (SlamMap.remove_keyframe)
+    stale = sum(k not in m.kf_valid for p in pts for k in m.pt_obs[int(p)])
+    check(stale == 0, f"checkpoint: {stale} observations by culled keyframes")
+    check(all(m2.pt_obs[int(p)] == m.pt_obs[int(p)] for p in pts), "checkpoint: observations differ")
     k = max(m.kf_valid)
     f = frame39.dev
     calls = [matchers.search_by_bow(mm.kf_frame[k].dev.desc, mm.kf_frame[k].dev.valid, mm.kf_frame[k].dev.angle,
@@ -1959,7 +2129,7 @@ def run_checkpoint(system, frame39, tmp) -> dict:
     out = dict(keyframes=m.n_keyframes(), points=len(pts), save_ms=save_ms, load_ms=load_ms,
                bytes=os.path.getsize(path), bow_matches=int(calls[0][2].sum()), stale_observations=stale)
     print(f"checkpoint: {out['keyframes']} keyframes, {out['points']} points ({stale} observations by culled "
-          f"keyframes not kept), save {save_ms:.1f} ms, load {load_ms:.1f} ms, {out['bytes']} bytes; keyframe {k} "
+          f"keyframes), save {save_ms:.1f} ms, load {load_ms:.1f} ms, {out['bytes']} bytes; keyframe {k} "
           f"vs frame 39 by search_by_bow: {out['bow_matches']} matches on both")
     return out
 
@@ -2164,6 +2334,8 @@ def main():
     t_main = time.perf_counter()
     build.load()
     print(f"kernel build: {build.build_seconds:.2f} s ({build.library_path()})")
+    for line in build.ptxas_report:
+        print(f"ptxas: {line}")
 
     world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
     cfg = slam_config(world)
@@ -2178,10 +2350,12 @@ def main():
     }
     check_k3_edge_cases()
     check_k4_edge_cases()
+    check_k5_edge_cases()
+    check_k6_edge_cases()
 
     reset_launch_counts()
-    system, est, ms, per_frame, fused, calls, ba_devices, local_ba = run_slice(world, cfg, frames, "cuda",
-                                                                               record=REC_FRAMES)
+    system, est, ms, per_frame, fused, calls, ba_devices, local_ba, recorded = run_slice(
+        world, cfg, frames, "cuda", record=REC_FRAMES)
     torch.cuda.synchronize()
     launches = launch_counts()
     frame39 = system.tracker.last_frame
@@ -2214,6 +2388,9 @@ def main():
     check(rmse < 0.06, f"ATE RMSE {rmse} >= 0.06 m")
     results.update(check_k3_main_path(calls))
     results["bow_transform"] = check_k4_main_path(system)
+    results["pose_lm"] = check_k5_main_path(recorded["pose_lm"])
+    results["select_keypoints"] = check_k6_main_path(recorded["select_keypoints"])
+    del recorded
 
     # relocalization and localization mode on the same system, each path
     # with its own counts
@@ -2241,7 +2418,7 @@ def main():
     # before the slice's frames, and before the profile phase: profiler
     # sessions after that long one have traced no kernels on the H100
     for name, k in KERNELS.items():
-        results[name][1]["device_ms"] = device_ms(results[name][3], k["kernel"])
+        results[name][1]["device_ms"] = device_ms(results[name][3], k["kernel"], per_call=k.get("per_call", 1))
     stagings = k4_stagings(system.vocabulary, results["bow_transform"][3])
     results["bow_transform"][1]["staged_levels"] = system.vocabulary.stage_levels
     results["bow_transform"][1]["device_ms_by_staged_levels"] = stagings
@@ -2271,6 +2448,15 @@ def main():
     # one launch per frame: K1 and K2 over every level, K3's stereo mode
     for name in ("fast_nms", "orb_patch_desc", "hamming_best2:stereo"):
         check(launches[name] == N_FRAMES, f"{name}: {launches[name]} launches over {N_FRAMES} frames")
+    # K6: one call per frame over every level, its two kernels
+    check(launches["select_keypoints"] == 2 * N_FRAMES,
+          f"select_keypoints: {launches['select_keypoints']} launches over {N_FRAMES} frames")
+    # K5: the motion-model and local-map pose LMs of a fused frame
+    k5_fused = [c["pose_lm"] for c, f in zip(per_frame, fused) if f]
+    check(all(n == 2 for n in k5_fused), f"pose_lm launches on the fused frames: {k5_fused}")
+    print(f"K5 pose_lm: {launches['pose_lm']} launches over {N_FRAMES} frames, 2 on each of the {len(k5_fused)} "
+          f"fused frames; K6 select_keypoints: {launches['select_keypoints']} launches (one call, two kernels, a "
+          f"frame)")
     for i, (f, c) in enumerate(zip(fused, per_frame)):
         # a fused frame: the tracker's one points launch, one or two (the
         # retry) frame launches, no search_by_bow mask launch; the mapper's

@@ -42,12 +42,17 @@ SIGNATURES = {
     "fast_nms_levels_launch": (1, 0),
     "hamming_best2_launch": (1, 0),
     "bow_transform_launch": (1, 0),
+    "pose_lm_launch": (1, 0),
+    "select_keypoints_launch": (1, 0),
 }
 
 _lock = threading.Lock()
 _lib = None
 #: seconds the last build (or cache hit) took; read by chip_smoke.py
 build_seconds = None
+#: ptxas's report of a fresh build (registers, stack frame and spills of
+#: every kernel), one line each; empty after a cache hit
+ptxas_report: list = []
 
 
 def _sources():
@@ -84,17 +89,20 @@ def load() -> ctypes.CDLL:
             tmp = f"{so}.{os.getpid()}.tmp"
             cu = [s for s in _sources() if s.endswith(".cu")]
             objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
-            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+            compile_flags = [f for f in NVCC_FLAGS if f != "-shared"] + ["-Xptxas", "-v"]
             procs = [
                 subprocess.Popen([_nvcc(), *compile_flags, "-I", _CSRC, "-c", "-o", o, s],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for s, o in zip(cu, objs)
             ]
+            report = []
             try:
                 for p in procs:
                     out, err = p.communicate()
                     if p.returncode != 0:
                         raise RuntimeError(f"nvcc failed ({p.returncode}) on {p.args[-1]}:\n{out}\n{err}")
+                    report += [f"{os.path.basename(p.args[-1])}: {line.strip()}" for line in err.splitlines()
+                               if "entry function" in line or "stack frame" in line or "Used" in line]
                 link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs], capture_output=True, text=True)
                 if link.returncode != 0:
                     raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
@@ -107,6 +115,7 @@ def load() -> ctypes.CDLL:
                     if os.path.exists(o):
                         os.remove(o)
             os.replace(tmp, so)
+            ptxas_report[:] = report
         lib = ctypes.CDLL(so)
         for name, (n_ptr, n_int) in SIGNATURES.items():
             fn = getattr(lib, name)

@@ -38,6 +38,17 @@ the candidate rule (`hamming.candidate_buckets`) on them on the CPU.
   * N == 0.
 `tests/test_torch_vocab_pnp.py` holds the plain version to the JAX
 package's `transform_words_nodes` on them on the CPU.
+
+`k5_raw_cases()` builds pose LM problems for K5 (`csrc/pose_lm.cu`):
+mixed mono and stereo edges with 25% outliers, mono-only edges, points
+behind the camera and (invalid) at |z| < 1e-6 under T0, no valid edge (H = 0), every
+edge an outlier after round 0, and one at the main path's N = 1200 with
+half the edges invalid. `k6_raw_cases()` builds masked FAST scores for K6
+(`csrc/select_keypoints.cu`): a level smaller than its budget (the
+k < n_target padding), tie-heavy scores, scores at the key's clamp, a
+level whose 30 px cells straddle the grid's cells, and a frame's 8 levels
+of random sparse scores. `tests/test_torch_select_pose_cases.py` holds the
+plain versions to the JAX package's functions on them on the CPU.
 """
 
 from __future__ import annotations
@@ -422,3 +433,140 @@ def k4_cases(device, seed: int = 0):
                     torch.from_numpy(np.ascontiguousarray(desc).view(np.int32).copy()).to(device),
                     torch.from_numpy(valid.copy()).to(device), level))
     return out
+
+
+# ---------------------------------------------------------------------------
+# K5: the pose LM
+# ---------------------------------------------------------------------------
+
+#: the synthetic worlds' 752x480 camera (fx, fy, cx, cy, bf, width, height)
+K5_CAMERA = (458.0, 457.0, 376.0, 240.0, 47.9, 752, 480)
+
+
+def _rodrigues(w):
+    th = float(np.linalg.norm(w))
+    K = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if th < 1e-12:
+        return np.eye(3) + K
+    return np.eye(3) + np.sin(th) / th * K + (1.0 - np.cos(th)) / th**2 * K @ K
+
+
+def _pose(w, t):
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = _rodrigues(np.asarray(w, np.float64)), t
+    return T
+
+
+def _project(T, pw):
+    fx, fy, cx, cy, bf = K5_CAMERA[:5]
+    pc = pw @ T[:3, :3].T + T[:3, 3]
+    u = fx * pc[:, 0] / pc[:, 2] + cx
+    return np.stack([u, fy * pc[:, 1] / pc[:, 2] + cy, u - bf / pc[:, 2]], axis=1)
+
+
+def _k5_problem(rng, n, outlier_frac=0.25, stereo_frac=0.8, noise=0.3):
+    pw = rng.uniform([-5, -3, 4], [5, 3, 25], (n, 3))
+    T_true = _pose([0.02, -0.03, 0.01], [0.3, -0.2, 0.15])
+    obs = _project(T_true, pw)
+    obs[:, :2] += rng.normal(0, noise, (n, 2))
+    out = rng.choice(n, int(outlier_frac * n), replace=False)
+    obs[out, :2] += rng.uniform(15, 60, (len(out), 2)) * rng.choice([-1, 1], (len(out), 2))
+    is_stereo = rng.uniform(size=n) < stereo_frac
+    inv_sigma2 = 1.0 / 1.44 ** rng.integers(0, 3, n)
+    T0 = _pose([0.01, 0.02, -0.01], [0.08, -0.06, 0.05]) @ T_true
+    return [T0.astype(np.float32), pw.astype(np.float32), obs.astype(np.float32), inv_sigma2.astype(np.float32),
+            is_stereo, np.ones(n, bool)]
+
+
+def k5_raw_cases(seed: int = 0):
+    """[(name, [T0 [4,4], pw [N,3], obs [N,3], inv_sigma2 [N] float32,
+    is_stereo [N], valid [N] bool])] as numpy, for the camera K5_CAMERA."""
+    rng = np.random.default_rng(seed)
+    out = [("mixed, 25% outliers", _k5_problem(rng, 300))]
+    a = _k5_problem(rng, 300, stereo_frac=0.0)
+    out.append(("mono only", a))
+    a = _k5_problem(rng, 300)
+    T0 = a[0].astype(np.float64)
+    pc = np.zeros((40, 3))
+    pc[:20] = rng.uniform([-3, -2, -8], [3, 2, -1], (20, 3))  # behind the camera
+    pc[20:, :2] = rng.uniform(-2, 2, (20, 2))
+    pc[20:, 2] = rng.uniform(-9e-7, 9e-7, 20)  # |z| < 1e-6
+    Rt = T0[:3, :3].T
+    a[1][:40] = ((pc - T0[:3, 3]) @ Rt.T).astype(np.float32)
+    a[2][:40] = rng.uniform([0, 0, -20], [752, 480, 700], (40, 3)).astype(np.float32)
+    # an active edge at z ~ 1e-7 would dominate H by ~1e20: those stay
+    # invalid, and are evaluated (weight 0) in every pass all the same
+    a[5][20:40] = False
+    out.append(("points behind the camera and at |z| < 1e-6", a))
+    a = _k5_problem(rng, 300)
+    a[5][:] = False
+    out.append(("no valid edge (H = 0)", a))
+    a = _k5_problem(rng, 200, outlier_frac=0.0)
+    a[2][:, :2] += (rng.uniform(80, 200, (200, 2)) * rng.choice([-1, 1], (200, 2))).astype(np.float32)
+    out.append(("every edge an outlier after round 0", a))
+    a = _k5_problem(rng, 1200, outlier_frac=0.1, stereo_frac=0.6)
+    a[5][rng.uniform(size=1200) < 0.5] = False
+    out.append(("N = 1200, half invalid", a))
+    return out
+
+
+def k5_cases(device, seed: int = 0):
+    """[(name, args, camera)] on `device`: `k5_raw_cases` as the port's
+    tensors, args in `pose_opt.pose_optimize`'s order."""
+    from ..geometry.camera import make_camera
+
+    cam = make_camera(*K5_CAMERA)
+    return [(name, tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args), cam)
+            for name, args in k5_raw_cases(seed)]
+
+
+# ---------------------------------------------------------------------------
+# K6: keypoint selection
+# ---------------------------------------------------------------------------
+
+
+def _nms3(score):
+    """where(score is its 3x3 neighbourhood's (tied) max and > 0, score, 0),
+    outside the image -inf: K2's output from a raw score."""
+    B, h, w = score.shape
+    p = np.full((B, h + 2, w + 2), -np.inf, np.float32)
+    p[:, 1:-1, 1:-1] = score
+    neigh = np.max(np.stack([p[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]), axis=0)
+    return np.where((score >= neigh) & (score > 0), score, 0).astype(np.float32)
+
+
+def _sparse_scores(rng, B, h, w, density=0.08, high=120.0):
+    s = np.where(rng.uniform(size=(B, h, w)) < density, rng.uniform(1.0, high, (B, h, w)), 0.0)
+    return s.astype(np.float32)
+
+
+def k6_raw_cases(seed: int = 0):
+    """[(name, [masked scores float32 [B, h, w] per level], [budget per
+    level])] as numpy; the scores are already NMS-masked, as K2 gives them."""
+    rng = np.random.default_rng(seed)
+    out = [("level smaller than its budget (k < n_target)", [_nms3(_sparse_scores(rng, 2, 40, 44, 0.3))], [500])]
+    ties = rng.integers(0, 4, (2, 97, 131)).astype(np.float32) * 7.0
+    out.append(("tie-heavy scores (4 values)", [ties], [150]))
+    flat = np.where(rng.uniform(size=(1, 120, 150)) < 0.5, 21.0, 0.0).astype(np.float32)
+    out.append(("every kept score equal", [flat], [90]))
+    big = _sparse_scores(rng, 2, 480, 752, 0.05, 3000.0)
+    big[:, 100:140, 200:260] = 1023.75  # 4 s = 4095 = the clamp at 19 position bits
+    out.append(("scores at and above the key's clamp", [_nms3(big)], [261]))
+    # 30 px cells without a hi pixel next to cells with one, on a level whose
+    # grid cells (c = 6 for 300 keypoints) straddle the 30 px cells
+    s = _sparse_scores(rng, 2, 113, 167, 0.1, 19.0)  # all below ini_th 20
+    s[:, 30:60, 60:90] = np.where(rng.uniform(size=(2, 30, 30)) < 0.1, 35.0, s[:, 30:60, 60:90])
+    s[:, :, 120:] = np.where(s[:, :, 120:] > 0, s[:, :, 120:] * 0.3, 0.0)  # below min_th 7 too
+    out.append(("30 px cells straddling the grid, fallback and none", [_nms3(s)], [300]))
+    levels, budgets = [], [261, 217, 181, 151, 126, 105, 87, 72]
+    for lvl in range(8):
+        h, w = int(round(480 / 1.2**lvl)), int(round(752 / 1.2**lvl))
+        levels.append(_nms3(_sparse_scores(rng, 2, h, w, 0.06)))
+    out.append(("8 levels of a 752x480 stereo pair, random scores", levels, budgets))
+    return out
+
+
+def k6_cases(device, seed: int = 0):
+    """[(name, [scores per level], [budgets])] on `device`."""
+    return [(name, [torch.from_numpy(s).to(device) for s in levels], budgets)
+            for name, levels, budgets in k6_raw_cases(seed)]

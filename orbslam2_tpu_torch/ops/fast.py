@@ -26,39 +26,55 @@ from ..kernels import build
 def _edge_pad3(img: torch.Tensor) -> torch.Tensor:
     """Replicate-pad the last two axes by 3 (`jnp.pad(mode="edge")`)."""
     H, W = img.shape[-2], img.shape[-1]
-    rows = torch.clamp(torch.arange(-3, H + 3, device=img.device), 0, H - 1)
-    cols = torch.clamp(torch.arange(-3, W + 3, device=img.device), 0, W - 1)
-    return img[..., rows, :][..., cols]
+    p = F.pad(img.reshape(-1, 1, H, W), (3, 3, 3, 3), mode="replicate")
+    return p.reshape(*img.shape[:-2], H + 6, W + 6)
+
+
+#: pixels per band of rows in `fast_score`: a band's 24 ring planes stay in
+#: a core's cache
+_BAND_PX = 16384
+
+
+def _arc_score(d24: torch.Tensor) -> torch.Tensor:
+    """FAST-9 score from the ring differences d24 [24, ...]: the 16 in ring
+    order, then the first 8 again (arcs wrap around the ring). The darkest
+    and brightest of each arc of 9 by log-doubling over the ring planes
+    (9 = 8 + 1), then the largest threshold at which an arc is all brighter
+    or all darker."""
+    score = None
+    for op in (torch.minimum, torch.maximum):
+        w = op(d24[:-1], d24[1:])  # arcs of 2 starting at 0..22
+        w = op(w[:-2], w[2:])  # 4, at 0..20
+        w = op(w[:-4], w[4:])  # 8, at 0..16
+        w = op(w[:16], d24[8:24])  # 9, at 0..15
+        s = w.amax(0) if op is torch.minimum else -w.amin(0)
+        score = s if score is None else torch.maximum(score, s)
+    return torch.clamp(score, min=0.0)
 
 
 def fast_score(img: torch.Tensor) -> torch.Tensor:
-    """FAST-9/16 score map of [..., H, W] float32 grayscale (0..255)."""
+    """FAST-9/16 score map of [..., H, W] float32 grayscale (0..255), in
+    bands of rows (every step is a min, a max or one subtraction: the band
+    changes no bit)."""
     H, W = img.shape[-2], img.shape[-1]
     ip = _edge_pad3(img)
-    ds = [ip[..., 3 + dy : 3 + dy + H, 3 + dx : 3 + dx + W] - img for (dx, dy) in CIRCLE]
-
-    # FAST-9: the 16 circular windows of 9 ring pixels, by log-doubling (9 = 8 + 1)
-    def win9(vals, op):
-        w2 = [op(vals[k], vals[(k + 1) % 16]) for k in range(16)]
-        w4 = [op(w2[k], w2[(k + 2) % 16]) for k in range(16)]
-        w8 = [op(w4[k], w4[(k + 4) % 16]) for k in range(16)]
-        return [op(w8[k], vals[(k + 8) % 16]) for k in range(16)]
-
-    mins = win9(ds, torch.minimum)
-    maxs = win9(ds, torch.maximum)
-    score = torch.zeros_like(img)
-    for k in range(16):
-        score = torch.maximum(score, mins[k])
-        score = torch.maximum(score, -maxs[k])
-    return torch.clamp(score, min=0.0)
+    out = torch.empty_like(img)
+    band = max(1, _BAND_PX // max(1, W * (img.numel() // max(1, H * W))))
+    for y0 in range(0, H, band):
+        y1 = min(y0 + band, H)
+        ring = [ip[..., 3 + dy + y0: 3 + dy + y1, 3 + dx: 3 + dx + W] for (dx, dy) in CIRCLE]
+        d24 = torch.stack(ring + ring[:8])
+        out[..., y0:y1, :] = _arc_score(d24.sub_(img[..., y0:y1, :]))
+    return out
 
 
 def nms3(score: torch.Tensor) -> torch.Tensor:
     """3x3 NMS mask: True where score is the (tied) local max and > 0;
-    outside the image counts as -inf."""
-    shape = score.shape
-    s4 = score.reshape(-1, 1, shape[-2], shape[-1])
-    neigh = F.max_pool2d(s4, kernel_size=3, stride=1, padding=1).reshape(shape)
+    outside the image counts as -inf. The 3x3 max is taken as a max over 3
+    rows, then over 3 columns (a max is exact: `max_pool2d`'s value)."""
+    p = F.pad(score, (1, 1, 1, 1), value=-float("inf"))
+    rows = torch.maximum(torch.maximum(p[..., :-2, :], p[..., 1:-1, :]), p[..., 2:, :])
+    neigh = torch.maximum(torch.maximum(rows[..., :-2], rows[..., 1:-1]), rows[..., 2:])
     return (score >= neigh) & (score > 0.0)
 
 

@@ -6,25 +6,29 @@ grid-balanced top-k keypoint selection, intensity-centroid orientation,
 7x7 Gaussian blur and 256-bit rotated BRIEF quantized to 32 bins, over a
 batch of images (left and right eye together).
 
-`extract` runs in three stages over the whole pyramid: the cascaded
+`extract` runs in four stages over the whole pyramid: the cascaded
 bilinear resize (`F.interpolate`), then ONE call of the FAST score with
-NMS for every level (kernel K2, `fast.fast_nms_levels`), the keypoint
-selection per level in plain PyTorch, then ONE call of the fused patch +
-descriptor kernel for every keypoint (K1, `patches.orb_patch_desc_levels`).
-No level's features feed another's, so this computes what the JAX
-package's level-by-level loop computes. The deviations from the reference
-are the JAX package's, documented in its module docstring.
+NMS for every level (kernel K2, `fast.fast_nms_levels`), ONE call of the
+keypoint selection for every level (K6, `select_keypoints_levels`), then
+ONE call of the fused patch + descriptor kernel for every keypoint (K1,
+`patches.orb_patch_desc_levels`). No level's features feed another's, so
+this computes what the JAX package's level-by-level loop computes. The
+deviations from the reference are the JAX package's, documented in its
+module docstring.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels import build
 from . import fast, patches
 
 KP_BORDER = 16  # keypoint-to-edge min distance (EDGE_THRESHOLD - 3)
@@ -92,6 +96,17 @@ def _cell_any(mask: torch.Tensor, cell: int) -> torch.Tensor:
     return up[:, :H, :W]
 
 
+def _level_grid(h: int, w: int, n_target: int):
+    """(c, gy, gx, pos_bits): the selection's grid of ~square c x c cells,
+    at least n_target of them (gy x gx), and the bits of a packed key's
+    position part."""
+    usable = max((h - 2 * KP_BORDER) * (w - 2 * KP_BORDER), 1)
+    c = max(int(math.sqrt(usable / max(n_target, 1))), 4)
+    while ((h + c - 1) // c) * ((w + c - 1) // c) < n_target and c > 4:
+        c -= 1
+    return c, (h + c - 1) // c, (w + c - 1) // c, max((h * w - 1).bit_length(), 1)
+
+
 def _select_level_keypoints(s: torch.Tensor, n_target: int, ini_th: float, min_th: float):
     """Masked FAST score s [B,h,w] (after NMS) -> (xs, ys, resp, valid),
     each [B, n_target].
@@ -114,14 +129,7 @@ def _select_level_keypoints(s: torch.Tensor, n_target: int, ini_th: float, min_t
     )
     s = torch.where(keep & border[None], s, 0.0)
 
-    # grid: ~square cells, at least n_target of them
-    usable = max((h - 2 * KP_BORDER) * (w - 2 * KP_BORDER), 1)
-    c = max(int(math.sqrt(usable / max(n_target, 1))), 4)
-    while ((h + c - 1) // c) * ((w + c - 1) // c) < n_target and c > 4:
-        c -= 1
-    gy, gx = (h + c - 1) // c, (w + c - 1) // c
-
-    pos_bits = max((h * w - 1).bit_length(), 1)
+    c, gy, gx, pos_bits = _level_grid(h, w, n_target)
     score_q = torch.clamp((s * 4.0).to(torch.int32), 0, (1 << (31 - pos_bits)) - 1)
     flat_pos = (ys_g * w + xs_g).to(torch.int32)
     packed = torch.where(s > 0.0, (score_q << pos_bits) | flat_pos[None], -1)
@@ -142,6 +150,113 @@ def _select_level_keypoints(s: torch.Tensor, n_target: int, ini_th: float, min_t
         padn = n_target - k
         xs, ys, top_v, valid = (F.pad(a, (0, padn)) for a in (xs, ys, top_v, valid))
     return xs.to(torch.int32), ys.to(torch.int32), top_v, valid
+
+
+def select_keypoints_levels_plain(scores, budgets, ini_th: float, min_th: float):
+    """Plain version of K6: `_select_level_keypoints` per level, with the
+    extractor's clamp of an empty slot's x and y to KP_BORDER. Returns the
+    lists (xs, ys, resp, valid), level l's entries [B, budgets[l]]."""
+    out = ([], [], [], [])
+    for s, n_t in zip(scores, budgets):
+        xs, ys, resp, valid = _select_level_keypoints(s, n_t, ini_th, min_th)
+        for lst, a in zip(out, (torch.where(valid, xs, KP_BORDER), torch.where(valid, ys, KP_BORDER), resp, valid)):
+            lst.append(a)
+    return out
+
+
+# csrc/select_keypoints.cu: at most MAX_LEVELS level descriptors
+MAX_LEVELS = 16
+
+
+class _SelLevel(ctypes.Structure):
+    _fields_ = [
+        ("score", ctypes.c_void_p), ("h", ctypes.c_int), ("w", ctypes.c_int), ("n_target", ctypes.c_int),
+        ("c", ctypes.c_int), ("gy", ctypes.c_int), ("gx", ctypes.c_int), ("pos_bits", ctypes.c_int),
+    ]
+
+
+class _SelArgs(ctypes.Structure):
+    """`SelArgsIn` of csrc/select_keypoints.cu. The launcher lays the
+    levels out and sets `n_blocks` to the blocks of its cell pass."""
+
+    _fields_ = [
+        ("lv", _SelLevel * MAX_LEVELS),
+        ("xs", ctypes.c_void_p), ("ys", ctypes.c_void_p), ("resp", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("cand", ctypes.c_void_p), ("ini_th", ctypes.c_float), ("min_th", ctypes.c_float),
+        ("n_levels", ctypes.c_int), ("n_images", ctypes.c_int), ("n_blocks", ctypes.c_int),
+    ]
+
+
+_count_lock = threading.Lock()
+
+
+def select_keypoints_levels(scores, budgets, ini_th: float, min_th: float):
+    """K6 wrapper over every level of a frame: masked FAST scores float32
+    [B, h_l, w_l] (K2's output) and per level its budget n_l -> lists
+    (xs, ys int32, resp float32, valid bool), level l's entries [B, n_l];
+    an empty slot holds x = y = KP_BORDER. CPU tensors take the plain
+    version; CUDA tensors take one call of `select_keypoints_launch`, its
+    two kernels (cell pass, top-k pass) over every level and image, each
+    counted, into one buffer per output."""
+    if not 0 < len(scores) <= MAX_LEVELS or len(budgets) != len(scores):
+        raise ValueError(f"select_keypoints_levels takes 1..{MAX_LEVELS} levels with a budget each")
+    dev = scores[0].device
+    if dev.type == "cpu":
+        return select_keypoints_levels_plain(scores, budgets, ini_th, min_th)
+    if dev.type != "cuda":
+        raise ValueError(f"select_keypoints_levels: unsupported device {dev}")
+    B = scores[0].shape[0]
+    args = _SelArgs(ini_th=ini_th, min_th=min_th, n_levels=len(scores), n_images=B)
+    n_out = n_cand = 0
+    for d, s, n_t in zip(args.lv, scores, budgets):
+        shape = s.shape
+        if (s.device != dev or s.dtype != torch.float32 or len(shape) != 3 or shape[0] != B
+                or not s.is_contiguous() or n_t < 0):
+            raise ValueError(f"select_keypoints_levels takes contiguous float32 [B,h,w] scores on one device "
+                             f"and budgets >= 0, got {s.dtype} {tuple(shape)} on {s.device}, budget {n_t}")
+        c, gy, gx, pos_bits = _level_grid(shape[1], shape[2], n_t)
+        d.score, d.h, d.w, d.n_target = s.data_ptr(), shape[1], shape[2], n_t
+        d.c, d.gy, d.gx, d.pos_bits = c, gy, gx, pos_bits
+        n_out += n_t
+        n_cand += 2 * gy * gx
+    xs, ys = (torch.empty(B * n_out, dtype=torch.int32, device=dev) for _ in range(2))
+    resp = torch.empty(B * n_out, dtype=torch.float32, device=dev)
+    valid = torch.empty(B * n_out, dtype=torch.bool, device=dev)
+    cand = torch.empty(B * n_cand, dtype=torch.int32, device=dev)
+    args.xs, args.ys, args.resp, args.valid, args.cand = (
+        t.data_ptr() for t in (xs, ys, resp, valid, cand))
+    build.launch("select_keypoints_launch", args)
+    if args.n_blocks:
+        with _count_lock:
+            select_keypoints_levels.launches += 2
+    out = ([], [], [], [])
+    first = 0
+    for n_t in budgets:
+        for lst, t in zip(out, (xs, ys, resp, valid)):
+            lst.append(t[B * first:B * (first + n_t)].view(B, n_t))
+        first += n_t
+    return out
+
+
+#: kernels launched: two per call with work (the cell pass and the top-k pass)
+select_keypoints_levels.launches = 0
+
+#: per (device, kept levels, budgets): each slot's level scale and octave,
+#: made once (on the card an upload per frame would wait for the copy)
+_COLUMNS = {}
+
+
+def _level_columns(dev, kept, budgets, sf):
+    """(scale float32 [N], octave int32 [N]) of the N slots of `kept`
+    levels with `budgets`, on `dev`."""
+    key = (str(dev), tuple(kept), tuple(budgets))
+    cols = _COLUMNS.get(key)
+    if cols is None:
+        n = [budgets[lvl] for lvl in kept]
+        cols = (torch.from_numpy(np.repeat(sf[kept].astype(np.float32), n)).to(dev),
+                torch.from_numpy(np.repeat(np.asarray(kept, np.int32), n)).to(dev))
+        _COLUMNS[key] = cols
+    return cols
 
 
 def pyramid_level(img: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
@@ -165,25 +280,14 @@ def extract(images: torch.Tensor, params: OrbParams) -> OrbFeatures:
     kept = [lvl for lvl, n_t in enumerate(budgets) if n_t > 0]
     levels = [pyramid[lvl] for lvl in kept]
     scores = fast.fast_nms_levels(levels)
-
-    xs_l, ys_l, uv_l, oct_l, resp_l, valid_l = [], [], [], [], [], []
-    for lvl, s in zip(kept, scores):
-        xs, ys, resp, valid = _select_level_keypoints(s, budgets[lvl], params.ini_th, params.min_th)
-        # clamp invalid slots to a safe in-bounds position
-        xs = torch.where(valid, xs, KP_BORDER)
-        ys = torch.where(valid, ys, KP_BORDER)
-        scale = torch.tensor(sf[lvl], dtype=torch.float32)
-        xs_l.append(xs)
-        ys_l.append(ys)
-        uv_l.append(torch.stack([xs * scale, ys * scale], dim=-1))
-        oct_l.append(torch.full((B, budgets[lvl]), lvl, dtype=torch.int32, device=images.device))
-        resp_l.append(resp)
-        valid_l.append(valid)
-
+    xs_l, ys_l, resp_l, valid_l = select_keypoints_levels(
+        scores, [budgets[lvl] for lvl in kept], params.ini_th, params.min_th)
     angle, desc = patches.orb_patch_desc_levels(levels, xs_l, ys_l)
+    scale, octave = _level_columns(images.device, kept, budgets, sf)
+    xs, ys = torch.cat(xs_l, dim=1), torch.cat(ys_l, dim=1)
     return OrbFeatures(
-        uv=torch.cat(uv_l, dim=1),
-        octave=torch.cat(oct_l, dim=1),
+        uv=torch.stack([xs * scale, ys * scale], dim=-1),
+        octave=octave.repeat(B, 1),
         angle=angle,
         response=torch.cat(resp_l, dim=1),
         desc=desc,

@@ -1,4 +1,4 @@
-"""Motion-only pose optimization: Levenberg-Marquardt on SE(3).
+"""Motion-only pose optimization: Levenberg-Marquardt on SE(3), and kernel K5.
 
 Port of orbslam2_tpu/ops/pose_opt.py (reference Optimizer::
 PoseOptimization, src/Optimizer.cpp:205-424): all edges evaluated in
@@ -8,19 +8,37 @@ every round restarting from the initial pose with the inliers
 reclassified by chi2, Huber in rounds 0-2. Mono edges are stereo edges
 whose third residual component is masked out.
 
-Accept/reject is a `torch.where` on device tensors, so the whole schedule
-runs without a host sync. This plain version is what runs on the card for
-now; a single-launch kernel is the next item of the port's roadmap.
+`pose_optimize` is the wrapper: on CPU tensors it runs the plain version,
+`pose_optimize_plain`; on CUDA tensors it makes ONE launch of the
+hand-written kernel `csrc/pose_lm.cu`, which runs the whole schedule in
+one CTA and writes the pose, the inlier mask and the inlier count on the
+device (no host sync). Both compute the same float64 math in the same
+steps:
+
+  * per edge, the residual r, the Jacobian rows K_c = [pc x a_c, a_c]
+    (J = -K, a_c the row of d(u, v, uR)/dpc) and the weight;
+  * the sums F, H (its 21 unique entries) and g = sum K^T W (-r);
+  * on the host (the plain version) or one thread (the kernel), the 6x6
+    Cholesky solve (x = 0 where a pivot is <= 0 or NaN, what
+    `cholesky_ex`'s info != 0 gave), the retract exp(dx) @ T
+    (geometry/se3.py, its small-angle branch included), g2o's rho test
+    and the lambda/nu update.
+
+They differ only in the order of the float64 sums, in contracted
+multiply-adds and in the last bits of sin and cos.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+import threading
 from typing import NamedTuple
 
 import torch
 
-from ..geometry import se3
 from ..geometry.camera import Camera
+from ..kernels import build
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -34,119 +52,229 @@ class PoseOptResult(NamedTuple):
     n_inliers: torch.Tensor  # scalar int32
 
 
-def _residual_jacobian(Tcw, pw, obs, is_stereo, cam: Camera):
-    """r = obs - h(Tcw @ pw) [N,3] and J = dr/dxi [N,3,6] for the stereo
-    measurement h = (u, v, u - bf/z); dpc/dxi = [-[pc]x | I]."""
-    pc = se3.transform(Tcw, pw)
-    x, y, z = pc[:, 0], pc[:, 1], pc[:, 2]
-    inv_z = 1.0 / torch.where(torch.abs(z) < 1e-6, 1e-6, z)
-    inv_z2 = inv_z * inv_z
+class _Edges(NamedTuple):
+    """The float64 edge data of one problem, and its per-edge constants."""
 
-    u = cam.fx * x * inv_z + cam.cx
-    v = cam.fy * y * inv_z + cam.cy
-    ur = u - cam.bf * inv_z
-    r = obs - torch.stack([u, v, ur], dim=-1)
-
-    zero = torch.zeros_like(x)
-    dh = torch.stack(
-        [
-            torch.stack([cam.fx * inv_z, zero, -cam.fx * x * inv_z2], -1),
-            torch.stack([zero, cam.fy * inv_z, -cam.fy * y * inv_z2], -1),
-            torch.stack([cam.fx * inv_z, zero, (-cam.fx * x + cam.bf) * inv_z2], -1),
-        ],
-        dim=-2,
-    )  # [N,3,3]
-    hat_pc = se3.hat(pc)
-    eye = torch.eye(3, dtype=pc.dtype, device=pc.device).expand(hat_pc.shape)
-    dpc = torch.cat([-hat_pc, eye], dim=-1)  # [N,3,6]
-    J = -(dh @ dpc)
-    comp_mask = torch.stack([torch.ones_like(x), torch.ones_like(x), is_stereo.to(pc.dtype)], -1)
-    return r, J, comp_mask, z > 0.0
+    pw: torch.Tensor  # [N,3]
+    obs: torch.Tensor  # [N,3]
+    inv_sigma2: torch.Tensor  # [N]
+    cm: torch.Tensor  # [N,3] component mask (1, 1, is_stereo)
+    delta: torch.Tensor  # [N] Huber width
+    delta2: torch.Tensor  # [N]
+    chi2_th: torch.Tensor  # [N]
+    f: torch.Tensor  # [2] (fx, fy)
+    c: torch.Tensor  # [2] (cx, cy)
 
 
-def _chi2(r, comp_mask, inv_sigma2):
+def _project(T, e: _Edges, cam: Camera):
+    """pc [N,3], 1/z (z clamped away from 0) [N], r = obs - h(pc) [N,3] for
+    the 3x4 pose T (float64 tensor) and the stereo measurement
+    h = (u, v, u - bf/z)."""
+    pc = torch.addmm(T[:, 3], e.pw, T[:, :3].T)
+    z = pc[:, 2]
+    iz = torch.where(torch.abs(z) < 1e-6, 1e-6, z).reciprocal()
+    uv = pc[:, :2] * e.f * iz[:, None] + e.c  # fx * x * iz + cx
+    r = e.obs - torch.cat([uv, (uv[:, 0] - cam.bf * iz)[:, None]], dim=1)
+    return pc, iz, r
+
+
+def _chi2(r, e: _Edges):
     """Unrobustified per-edge chi2 = r^T Omega r with Omega = invSigma2*I."""
-    return torch.sum(r * r * comp_mask, dim=-1) * inv_sigma2
+    return torch.sum(r * r * e.cm, dim=-1) * e.inv_sigma2
 
 
-def _solve6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Cholesky solve of the 6x6 system A x = b, without a host sync.
+def _terms(T, e: _Edges, active, use_huber: bool, cam: Camera):
+    """F and the 7x7 M = sum over edges and components of W k k^T, with
+    k = (K_c, -r_c): H = M[:6, :6], g = M[:6, 6]."""
+    pc, iz, r = _project(T, e, cam)
+    x, y = pc[:, 0], pc[:, 1]
+    e2 = _chi2(r, e)
+    robust = (e2 > e.delta2) if use_huber else torch.zeros_like(active)
+    sq = torch.sqrt(torch.clamp(e2, min=1e-12))
+    w_act = active & (pc[:, 2] > 0.0)
+    F = torch.sum(torch.where(w_act, torch.where(robust, 2.0 * e.delta * sq - e.delta2, e2), 0.0))
+    w = torch.where(w_act, torch.where(robust, e.delta / sq, 1.0) * e.inv_sigma2, 0.0)
+    fiz, iz2, zero = cam.fx * iz, iz * iz, torch.zeros_like(iz)
+    a = torch.stack([fiz, zero, -cam.fx * x * iz2,
+                     zero, cam.fy * iz, -cam.fy * y * iz2,
+                     fiz, zero, (cam.bf - cam.fx * x) * iz2], dim=-1).view(-1, 3, 3)
+    k = torch.cat([torch.linalg.cross(pc[:, None, :].expand(-1, 3, -1), a, dim=-1), a, -r[:, :, None]], dim=-1)
+    kw = (k * (w[:, None] * e.cm)[:, :, None]).view(-1, 7)
+    return F, kw.T @ k.view(-1, 7)
 
-    The LM's A = H + lam*I is positive definite whenever H != 0 (lam =
-    1e-5 max diag H > 0). When H = 0 (no active edge) the factorization
-    fails and b = g = 0: x = 0 then, never NaN, which is what the JAX
-    package's clamped pivots (sqrt(max(s, 1e-20))) give."""
-    L, info = torch.linalg.cholesky_ex(A)
-    x = torch.cholesky_solve(b[:, None], L)[:, 0]
-    return torch.where(info == 0, x, 0.0)
+
+def _solve6(A, b):
+    """x with A x = b for the 6x6 A (lower triangle read), float64 nested
+    lists: 0 where a pivot is <= 0 or NaN (when H = 0, no active edge, b
+    = g = 0 too)."""
+    L = [[0.0] * 6 for _ in range(6)]
+    for j in range(6):
+        s = A[j][j]
+        for k in range(j):
+            s -= L[j][k] * L[j][k]
+        if not s > 0.0:
+            return [0.0] * 6
+        L[j][j] = math.sqrt(s)
+        for i in range(j + 1, 6):
+            s = A[i][j]
+            for k in range(j):
+                s -= L[i][k] * L[j][k]
+            L[i][j] = s / L[j][j]
+    y = [0.0] * 6
+    for i in range(6):
+        s = b[i]
+        for k in range(i):
+            s -= L[i][k] * y[k]
+        y[i] = s / L[i][i]
+    x = [0.0] * 6
+    for i in reversed(range(6)):
+        s = y[i]
+        for k in range(i + 1, 6):
+            s -= L[k][i] * x[k]
+        x[i] = s / L[i][i]
+    return x
 
 
-def _lm_optimize(T0, pw, obs, inv_sigma2, is_stereo, active, cam, use_huber: bool, n_iters: int):
-    """n_iters LM iterations from T0 over `active` edges. Returns T."""
-    delta = torch.where(is_stereo, DELTA_STEREO, DELTA_MONO)
-    delta2 = delta * delta
-    eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
+def _retract(T, dx):
+    """exp(dx) @ T for the 3x4 pose T (rows), dx = (omega, upsilon):
+    geometry/se3.py's `exp` (Rodrigues and the left Jacobian, with their
+    theta2 < 1e-8 branches) in float64 scalars."""
+    w0, w1, w2 = dx[0], dx[1], dx[2]
+    theta2 = w0 * w0 + w1 * w1 + w2 * w2
+    theta = math.sqrt(max(theta2, 1e-16))
+    if theta2 < 1e-8:
+        A = 1.0 - theta2 / 6.0
+        B = 0.5 - theta2 / 24.0
+        C = 1.0 / 6.0 - theta2 / 120.0
+    else:
+        s = math.sin(theta)
+        A = s / theta
+        B = (1.0 - math.cos(theta)) / theta2
+        C = (theta - s) / (theta2 * theta)
+    W = ((0.0, -w2, w1), (w2, 0.0, -w0), (-w1, w0, 0.0))
+    W2 = [[W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j] for j in range(3)] for i in range(3)]
+    R = [[(i == j) + A * W[i][j] + B * W2[i][j] for j in range(3)] for i in range(3)]
+    V = [[(i == j) + B * W[i][j] + C * W2[i][j] for j in range(3)] for i in range(3)]
+    t = [V[i][0] * dx[3] + V[i][1] * dx[4] + V[i][2] * dx[5] for i in range(3)]
+    return [[R[i][0] * T[0][j] + R[i][1] * T[1][j] + R[i][2] * T[2][j] + (t[i] if j == 3 else 0.0)
+             for j in range(4)] for i in range(3)]
 
-    def eval_all(T):
-        r, J, cm, depth_ok = _residual_jacobian(T, pw, obs, is_stereo, cam)
-        e2 = _chi2(r, cm, inv_sigma2)
-        robust = (e2 > delta2) if use_huber else torch.zeros_like(depth_ok)
-        sq = torch.sqrt(torch.clamp(e2, min=1e-12))
-        rho = torch.where(robust, 2.0 * delta * sq - delta2, e2)
-        w_act = active & depth_ok
-        F = torch.sum(torch.where(w_act, rho, 0.0))
-        w_huber = torch.where(robust, delta / sq, 1.0)
-        W = torch.where(w_act, w_huber * inv_sigma2, 0.0)[:, None] * cm  # [N,3]
-        H = torch.einsum("nci,nc,ncj->ij", J, W, J)
-        g = torch.einsum("nci,nc->i", J, W * r)
-        return F, H, g
 
-    F, H, g = eval_all(T0)
+def _lm_optimize(T0, e: _Edges, active, cam: Camera, use_huber: bool, n_iters: int):
+    """n_iters LM iterations from the 3x4 pose T0 (rows) over `active`
+    edges. Returns the pose."""
+    dev = e.pw.device
+
+    def eval_at(T):
+        F, M = _terms(torch.tensor(T, dtype=torch.float64, device=dev), e, active, use_huber, cam)
+        v = torch.cat([M[:6].reshape(-1), F.reshape(1)]).tolist()
+        return v[42], [v[7 * i:7 * i + 6] for i in range(6)], [v[7 * i + 6] for i in range(6)]
+
+    F, H, g = eval_at(T0)
     T = T0
-    lam = 1e-5 * torch.max(torch.diagonal(H))
-    ni = torch.tensor(2.0, dtype=T0.dtype, device=T0.device)
+    lam = 1e-5 * max(H[i][i] for i in range(6))
+    ni = 2.0
     for _ in range(n_iters):
-        dx = -_solve6(H + lam * eye6, g)
-        T_new = se3.retract(T, dx)
-        F_new, H_new, g_new = eval_all(T_new)
+        A = [[H[i][j] + (lam if i == j else 0.0) for j in range(6)] for i in range(6)]
+        dx = [-x for x in _solve6(A, g)]
+        T_new = _retract(T, dx)
+        F_new, H_new, g_new = eval_at(T_new)
         # g2o rho denominator: dx^T (lam*dx + b), b = -g
-        rho = (F - F_new) / (torch.dot(dx, lam * dx - g) + 1e-12)
-        ok = (rho > 0.0) & torch.isfinite(F_new)
-        lam_up = lam * ni
-        lam_down = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-        T = torch.where(ok, T_new, T)
-        F = torch.where(ok, F_new, F)
-        H = torch.where(ok, H_new, H)
-        g = torch.where(ok, g_new, g)
-        lam = torch.where(ok, lam_down, lam_up)
-        ni = torch.where(ok, 2.0, ni * 2.0)
+        rho = (F - F_new) / (sum(d * (lam * d - gi) for d, gi in zip(dx, g)) + 1e-12)
+        if rho > 0.0 and math.isfinite(F_new):
+            T, F, H, g = T_new, F_new, H_new, g_new
+            q = 2.0 * rho - 1.0
+            lam *= max(1.0 - q * q * q, 1.0 / 3.0)
+            ni = 2.0
+        else:
+            lam *= ni
+            ni *= 2.0
     return T
+
+
+def pose_optimize_plain(T0, pw, obs, inv_sigma2, is_stereo, valid, cam: Camera,
+                        n_rounds: int = 4, n_iters: int = 10) -> PoseOptResult:
+    """Plain version of K5: the 4-round schedule over N edges, the edge
+    terms in batched float64 PyTorch and the 6x6 algebra on the host
+    (a device read per LM pass). Arguments as `pose_optimize`."""
+    out_dtype, dev = T0.dtype, T0.device
+    f64 = torch.float64
+    # the Huber widths and chi2 thresholds are float32, as the JAX package's
+    delta = torch.where(is_stereo, DELTA_STEREO, DELTA_MONO).to(torch.float32)
+    e = _Edges(
+        pw=pw.to(f64), obs=obs.to(f64), inv_sigma2=inv_sigma2.to(f64),
+        cm=torch.stack([torch.ones_like(is_stereo), torch.ones_like(is_stereo), is_stereo], -1).to(f64),
+        delta=delta.to(f64), delta2=(delta * delta).to(f64),
+        chi2_th=torch.where(is_stereo, CHI2_STEREO, CHI2_MONO).to(torch.float32).to(f64),
+        f=torch.tensor([cam.fx, cam.fy], dtype=f64, device=dev),
+        c=torch.tensor([cam.cx, cam.cy], dtype=f64, device=dev),
+    )
+    T0_rows = T0.to(f64)[:3].tolist()
+    outlier = torch.zeros_like(valid)
+    T_opt = T0_rows
+    for round_idx in range(n_rounds):
+        T_opt = _lm_optimize(T0_rows, e, valid & ~outlier, cam, round_idx < n_rounds - 1, n_iters)
+        pc, _, r = _project(torch.tensor(T_opt, dtype=f64, device=dev), e, cam)
+        outlier = valid & ((_chi2(r, e) > e.chi2_th) | ~(pc[:, 2] > 0.0))
+    inlier = valid & ~outlier
+    Tcw = torch.tensor(T_opt + [[0.0, 0.0, 0.0, 1.0]], dtype=f64, device=dev)
+    return PoseOptResult(Tcw=Tcw.to(out_dtype), inlier=inlier, n_inliers=inlier.sum().to(torch.int32))
+
+
+class _K5Args(ctypes.Structure):
+    """`PoseLMArgs` of csrc/pose_lm.cu."""
+
+    _fields_ = [
+        ("T0", ctypes.c_void_p), ("pw", ctypes.c_void_p), ("obs", ctypes.c_void_p),
+        ("inv_sigma2", ctypes.c_void_p), ("is_stereo", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+        ("Tcw", ctypes.c_void_p), ("inlier", ctypes.c_void_p), ("n_inliers", ctypes.c_void_p),
+        ("fx", ctypes.c_double), ("fy", ctypes.c_double), ("cx", ctypes.c_double), ("cy", ctypes.c_double),
+        ("bf", ctypes.c_double), ("n", ctypes.c_int), ("n_rounds", ctypes.c_int), ("n_iters", ctypes.c_int),
+    ]
+
+
+_count_lock = threading.Lock()
 
 
 def pose_optimize(T0, pw, obs, inv_sigma2, is_stereo, valid, cam: Camera,
                   n_rounds: int = 4, n_iters: int = 10) -> PoseOptResult:
-    """Full 4-round schedule over N edges: pw [N,3] world points, obs [N,3]
-    (u, v, uR), inv_sigma2 [N], is_stereo [N], valid [N] (edge exists).
+    """Full 4-round schedule over N edges: T0 [4,4], pw [N,3] world points,
+    obs [N,3] (u, v, uR), inv_sigma2 [N], is_stereo [N], valid [N] (edge
+    exists). CPU tensors take `pose_optimize_plain`; CUDA tensors (float32
+    T0, pw, obs, inv_sigma2, bool masks) take one launch of K5.
 
     The schedule runs in float64 (the reference's g2o is double) and
     returns a float32 pose: in float32, the LM's accept/reject test near
     convergence compares objective changes below the rounding noise of the
     objective itself, and a flipped decision there can move the final pose
     by millimetres."""
-    out_dtype = T0.dtype
-    T0, pw, obs, inv_sigma2 = (x.to(torch.float64) for x in (T0, pw, obs, inv_sigma2))
-    chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
-    outlier = torch.zeros_like(valid)
-    T_opt = T0
-    for round_idx in range(n_rounds):
-        active = valid & ~outlier
-        T_opt = _lm_optimize(
-            T0, pw, obs, inv_sigma2, is_stereo, active, cam,
-            round_idx < n_rounds - 1, n_iters,
-        )
-        r, _, cm, depth_ok = _residual_jacobian(T_opt, pw, obs, is_stereo, cam)
-        outlier = valid & ((_chi2(r, cm, inv_sigma2) > chi2_th) | ~depth_ok)
-    inlier = valid & ~outlier
-    return PoseOptResult(
-        Tcw=T_opt.to(out_dtype), inlier=inlier, n_inliers=inlier.sum().to(torch.int32)
-    )
+    dev = T0.device
+    if dev.type == "cpu":
+        return pose_optimize_plain(T0, pw, obs, inv_sigma2, is_stereo, valid, cam, n_rounds, n_iters)
+    if dev.type != "cuda":
+        raise ValueError(f"pose_optimize: unsupported device {dev}")
+    N = pw.shape[0]
+    want = {"T0": (T0, torch.float32, (4, 4)), "pw": (pw, torch.float32, (N, 3)),
+            "obs": (obs, torch.float32, (N, 3)), "inv_sigma2": (inv_sigma2, torch.float32, (N,)),
+            "is_stereo": (is_stereo, torch.bool, (N,)), "valid": (valid, torch.bool, (N,))}
+    args = _K5Args(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf, n=N, n_rounds=n_rounds,
+                   n_iters=n_iters)
+    keep = []
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"pose_optimize: {name} must be {dtype} {shape} on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        t = t.contiguous()
+        keep.append(t)
+        setattr(args, name, t.data_ptr())
+    Tcw = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inlier = torch.empty((N,), dtype=torch.bool, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int32, device=dev)
+    args.Tcw, args.inlier, args.n_inliers = Tcw.data_ptr(), inlier.data_ptr(), n_inliers.data_ptr()
+    build.launch("pose_lm_launch", args)
+    with _count_lock:
+        pose_optimize.launches += 1
+    return PoseOptResult(Tcw=Tcw, inlier=inlier, n_inliers=n_inliers)
+
+
+pose_optimize.launches = 0

@@ -9,9 +9,10 @@ loads in the other.
 
 `load_map` rebuilds each keyframe's `FrameHost` from the host arrays and
 uploads its `FrameFeatures` to `device` once (descriptors through
-`convert.desc_to_torch`), under the map lock. As in the JAX package, the
-keyframe database is not re-indexed: a System that loads a map
-relocalizes and closes loops only against keyframes made after the load.
+`convert.desc_to_torch`), under the map lock. `System.load_map` then
+indexes every loaded keyframe in the keyframe database, so a System that
+loads a map relocalizes and closes loops against the loaded keyframes too.
+The JAX package leaves its database empty after a load.
 """
 
 from __future__ import annotations
@@ -39,10 +40,11 @@ def save_map(m: SlamMap, path: str):
     obs_pt, obs_kf, obs_idx = [], [], []
     for p in pts:
         for k, idx in m.pt_obs[p].items():
-            if k in m.kf_valid:
-                obs_pt.append(p)
-                obs_kf.append(k)
-                obs_idx.append(idx)
+            # a culled keyframe leaves no observation (SlamMap.remove_keyframe)
+            assert k in m.kf_valid, f"point {p} is observed by the dead keyframe {k}"
+            obs_pt.append(p)
+            obs_kf.append(k)
+            obs_idx.append(idx)
 
     np.savez_compressed(
         path,

@@ -26,6 +26,7 @@ binds there, 16 fusion targets, is kept.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import List
 
 import numpy as np
@@ -41,6 +42,10 @@ from .map import SlamMap
 #: forward-fusion targets (1st + 2nd covisibility ring; the JAX package's
 #: `ShapePolicy.fuse_targets_cap`, the reference walks up to ~35)
 FUSE_TARGETS_CAP = 16
+
+
+#: keyframes the tracker may queue for the mapper (reference Tracking.cpp:891)
+QUEUE_LIMIT = 3
 
 
 class LocalMapper:
@@ -60,6 +65,9 @@ class LocalMapper:
         self._accept = True
         self._abort_ba = False
         self._queue: List[int] = []
+        #: notified when a keyframe leaves the queue, the mapper stops or
+        #: its worker fails (what wait_for_room waits on)
+        self._room = threading.Condition()
         self.n_processed = 0
         self.n_created = 0  # points created by triangulation
         self.n_local_ba = 0  # local bundle adjustments solved
@@ -86,11 +94,34 @@ class LocalMapper:
     def queue_size(self) -> int:
         return len(self._queue)
 
+    def has_room(self) -> bool:
+        """Fewer than QUEUE_LIMIT keyframes wait: the tracker may queue one
+        more (reference Tracking.cpp:884-894)."""
+        return len(self._queue) < QUEUE_LIMIT
+
+    def wait_for_room(self):
+        """Threaded: block until the mapper has room or is stopped. The
+        tracker calls it before each frame, outside the map lock, so it
+        never outruns the mapper by more than the queue the reference's
+        keyframe policy allows. The reference's tracker never waits; it
+        refuses the keyframe, and a tracker much faster than its mapper
+        then starves the map. Inline mapping never queues, so this returns
+        at once."""
+        if self.worker is None:
+            return
+        with self._room:
+            self._room.wait_for(lambda: self.has_room() or self._stopped)
+
+    def _notify_room(self):
+        with self._room:
+            self._room.notify_all()
+
     def request_stop(self):
         """Reference LocalMapping::RequestStop (LocalMapping.cpp:556-561):
         also aborts a running BA so the worker parks promptly."""
         self._stopped = True
         self._abort_ba = True
+        self._notify_room()
 
     def wait_stopped(self, timeout: float = 60.0):
         """Wait until no keyframe is mid-processing (reference CorrectLoop's
@@ -124,7 +155,17 @@ class LocalMapper:
         frame; threaded mode: the worker loop)."""
         if self._stopped or not self._queue:
             return
-        self._process(self._queue.pop(0))
+        kf = self._queue.pop(0)
+        self._notify_room()
+        try:
+            self._process(kf)
+        except BaseException:
+            # threaded, the worker records the error and drops the queue
+            # (pipeline._StageWorker._run): drop it here first, so that a
+            # tracker waiting for room goes on
+            self._queue.clear()
+            self._notify_room()
+            raise
 
     def _span(self, name):
         return self.timers.span(name) if self.timers else contextlib.nullcontext()

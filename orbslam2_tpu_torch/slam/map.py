@@ -18,12 +18,14 @@ Conventions: keyframe ids and point ids are stable ints; `-1` means none.
 Deleted rows are masked via `kf_valid` / `pt_valid` (tombstones), matching
 the reference's SetBadFlag protocol (KeyFrame.cpp:443-536).
 
-This file is a copy of orbslam2_tpu/slam/map.py with two differences.
+This file is a copy of orbslam2_tpu/slam/map.py with three differences.
 What `from .frontend import FrameHost` resolves to: the JAX package's
 `slam/frontend.py` imports JAX, so its map module cannot be imported where
 JAX is absent; here the import names the port's `FrameHost`, which keeps
-the same host fields (descriptors as uint32 words). And `clear` keeps the
-keyframe database's erase hook, which the JAX package's drops. Merging
+the same host fields (descriptors as uint32 words). `clear` keeps the
+keyframe database's erase hook, which the JAX package's drops. And
+`remove_keyframe` erases every observation the keyframe holds, where the
+JAX package's erases only those its point slots still name. Merging
 the two copies by moving the import under `TYPE_CHECKING` is a roadmap
 item.
 """
@@ -734,23 +736,28 @@ class SlamMap:
     def remove_keyframe(self, kf: int):
         """SetBadFlag: detach observations, re-parent children via the
         covisibility-weighted BFS (reference KeyFrame.cpp:443-536, simplified
-        to best-parent-candidate per child)."""
+        to best-parent-candidate per child).
+
+        Every observation the keyframe holds is erased, found through the
+        observation mirror (`pt_obs_kf`), whether or not the keyframe's
+        point slot still names the point: a slot goes stale when its point
+        is replaced or moved. The JAX package erases only through the slots
+        and so can leave a culled keyframe's observation behind."""
         if kf == 0 or kf not in self.kf_valid:
             return
         for okf in list(self.covis.get(kf, {})):
             self.covis[okf].pop(kf, None)
-        for idx, pid in enumerate(self.kf_point[kf]):
-            if pid >= 0 and pid in self.pt_valid:
-                pid = int(pid)
-                obs = self.pt_obs[pid]
-                if obs.get(kf) == idx:
-                    obs.pop(kf, None)
-                    self._obs_del(pid, kf)
-                    self.pt_nobs[pid] -= self._obs_weight(kf, idx)
-                    if self.pt_ref_kf[pid] == kf and obs:
-                        self.pt_ref_kf[pid] = next(iter(obs))
-                    if len(obs) <= 1:
-                        self.remove_point(pid)
+        for pid in np.nonzero((self.pt_obs_kf == kf).any(axis=1))[0].tolist():
+            if pid not in self.pt_valid:
+                continue
+            obs = self.pt_obs[pid]
+            idx = obs.pop(kf)
+            self._obs_del(pid, kf)
+            self.pt_nobs[pid] -= self._obs_weight(kf, int(idx))
+            if self.pt_ref_kf[pid] == kf and obs:
+                self.pt_ref_kf[pid] = next(iter(obs))
+            if len(obs) <= 1:
+                self.remove_point(pid)
         # re-parent children: candidates = parent + existing parents chain
         parent = self.parent.get(kf, 0)
         candidates = {parent}

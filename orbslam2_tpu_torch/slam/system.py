@@ -286,5 +286,14 @@ class System:
     def load_map(self, path: str):
         """Replace the map by the one saved at `path` (by either package);
         its keyframes' features go to this System's device. The keyframe
-        database is not re-indexed, as in the JAX package."""
+        database is emptied and every loaded keyframe indexed in it (one K4
+        launch each), under the map lock, so that relocalization and loop
+        detection reach the loaded keyframes (the reference has no LoadMap,
+        System.hpp:109-111; its database holds every keyframe). The JAX
+        package leaves the database empty."""
         checkpoint.load_map(self.map, path, self.device)
+        if self.relocalizer is not None:
+            with self.map.lock:
+                self.relocalizer.database.clear()
+                for kf in sorted(self.map.kf_valid):
+                    self.relocalizer.add_keyframe(kf)

@@ -293,6 +293,8 @@ class Tracker:
         """Process one stereo frame (numpy arrays, or tensors, which stay on
         the device); returns Tcw or None when lost."""
         self.last_images = (im_left, im_right)
+        if self.local_mapper is not None:
+            self.local_mapper.wait_for_room()
         images_u8 = _u8(stack_images(im_left, im_right))
         if self._can_fuse():
             with self._span("Fused assemble"):
@@ -318,6 +320,8 @@ class Tracker:
     def track_mono(self, image, timestamp: float) -> Optional[np.ndarray]:
         """Process one monocular frame (upstream GrabImageMonocular); returns
         Tcw, or None when lost or not initialized yet."""
+        if self.local_mapper is not None:
+            self.local_mapper.wait_for_room()
         with self._span("ORB extraction"):
             feats = self.frontend.process_mono(image)
         frame = FrameHost(feats, timestamp, self.frame_id)
@@ -984,7 +988,7 @@ class Tracker:
         if idle:
             return True
         lm.interrupt_ba()
-        return lm.queue_size() < 3
+        return lm.has_room()
 
     def _tracked_in_keyframe(self, kf: Optional[int], min_obs: int) -> int:
         if kf is None or kf not in self.map.kf_valid:

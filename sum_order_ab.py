@@ -115,7 +115,7 @@ def recorded_solves():
     slice and the first global BA and essential graph of its loop phase."""
     world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
     _, frames = world.render_sequence(smoke.N_FRAMES, step=0.06)
-    local_ba = smoke.run_slice(world, smoke.slam_config(world), frames, "cuda")[-1]
+    local_ba = smoke.run_slice(world, smoke.slam_config(world), frames, "cuda")[7]
     smoke.check(local_ba is not None, "no local BA was recorded on the slice")
     *_, graph, global_ba = smoke.run_loop()
     out = {}

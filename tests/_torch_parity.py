@@ -37,6 +37,21 @@ def np_of(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def random_xi(rng, n, rot=0.5, trans=2.0):
+    """n se3 tangents (rotation, translation) uniform in +-rot, +-trans."""
+    return np.concatenate(
+        [rng.uniform(-rot, rot, (n, 3)), rng.uniform(-trans, trans, (n, 3))], axis=1
+    ).astype(np.float32)
+
+
+def random_descs(rng, n, ties=False):
+    """n 256-bit descriptors as 8 uint32 words; `ties`: few distinct words,
+    so many equal distances."""
+    if ties:
+        return rng.choice(np.array([0, 1, 3, 0xFFFFFFFF, 0x80000000], np.uint32), (n, 8))
+    return rng.integers(0, 2**32, (n, 8), dtype=np.uint64).astype(np.uint32)
+
+
 def slam_config(world, config_module):
     """The configuration of tests/test_tracking.py for `world`, as a
     `SlamConfig` of `config_module` (the JAX package's or the port's)."""

@@ -22,8 +22,9 @@ from orbslam2_tpu.slam import timing as jtiming
 from orbslam2_tpu_torch import config as tconfig
 from orbslam2_tpu_torch.evaluation import analyze as tanalyze
 from orbslam2_tpu_torch.evaluation import ate as tate
+from orbslam2_tpu_torch.geometry.camera import make_camera
 from orbslam2_tpu_torch.kernels import build
-from orbslam2_tpu_torch.ops import fast, hamming, patches
+from orbslam2_tpu_torch.ops import fast, hamming, orb, patches, pose_opt
 from orbslam2_tpu_torch.slam import timing as ttiming
 from orbslam2_tpu_torch.vocab import bow
 
@@ -153,7 +154,8 @@ def test_no_jax_import_in_port_sources():
     port or its card scripts, not even behind a `try`."""
     pattern = re.compile(r"^\s*(import jax|from jax|import orbslam2_tpu\b(?!_)|from orbslam2_tpu\b(?!_)"
                          r"|(import|from) (cv2|matplotlib|PIL)\b)", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "kernel_device_ab.py")]
+    files = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "kernel_device_ab.py", "threaded_pace_probe.py",
+                                             "threaded_slice_probe.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "orbslam2_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     hits = [f for f in files if pattern.search(open(f).read())]
@@ -176,6 +178,13 @@ def test_wrappers_refuse_other_devices():
         hamming.best2_gated(d, d, _nodes_gate("meta"), "loop")
     with pytest.raises(ValueError):
         bow.transform_words_nodes(_vocabulary("meta"), d, torch.ones(3, dtype=torch.bool, device="meta"))
+    with pytest.raises(ValueError):
+        orb.select_keypoints_levels([img], [10], 20.0, 7.0)
+    p = torch.zeros((3, 3), device="meta")
+    flags = torch.ones(3, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError):
+        pose_opt.pose_optimize(torch.eye(4, device="meta"), p, p, p[:, 0], flags, flags,
+                               make_camera(458.0, 457.0, 376.0, 240.0, 47.9))
 
 
 def _vocabulary(device):

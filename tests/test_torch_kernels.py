@@ -6,7 +6,10 @@ none (a CUDA kernel has no interpret mode). On the card:
     python -m pytest tests/test_torch_kernels.py -m cuda
 
 Stated tolerances: K2 (fast_nms), K3 (hamming_best2, every mode, `fuse`
-included) and K4 (bow_transform) exact; K1
+included), K4 (bow_transform) and K6 (select_keypoints) exact; K5
+(pose_lm) with the plain version's inlier masks and counts and the pose
+within 1e-6 (the float64 sums run in another order, and the pose is
+rounded to float32); K1
 (orb_patch_desc) angle within 1e-4 rad and descriptor bit error rate < 1%
 (the kernel sums the moments in another order than the plain version's
 matrix product, so an angle can move in its last bits and, rarely, a
@@ -23,7 +26,7 @@ from _torch_parity import slam_config
 from orbslam2_tpu_torch import config as torch_config
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.kernels import cases
-from orbslam2_tpu_torch.ops import fast, hamming, matchers, orb, patches
+from orbslam2_tpu_torch.ops import fast, hamming, matchers, orb, patches, pose_opt
 from orbslam2_tpu_torch.slam.system import System
 
 pytestmark = pytest.mark.cuda
@@ -263,3 +266,54 @@ def test_bow_transform_exact(cuda):
         want = bow.transform_words_nodes_plain(voc, f.desc[e], f.valid[e])
         for g, w in zip(got, want):
             assert torch.equal(g, w)
+
+
+def _k5_same(got, want, what):
+    assert torch.equal(got.inlier, want.inlier), what
+    assert int(got.n_inliers) == int(want.n_inliers), what
+    assert float((got.Tcw - want.Tcw).abs().max()) <= 1e-6, what
+
+
+def test_pose_lm_matches_plain(cuda):
+    """K5 against its plain version on the edge cases of `kernels/cases.py`
+    and on a problem made from an extracted frame (its stereo keypoints
+    back-projected at a known pose, T0 moved off it, every fifth match
+    moved 40 px), one launch per call."""
+    for name, args, cam in cases.k5_cases(cuda):
+        before = pose_opt.pose_optimize.launches
+        got = pose_opt.pose_optimize(*args, cam)
+        assert pose_opt.pose_optimize.launches == before + 1, name
+        _k5_same(got, pose_opt.pose_optimize_plain(*args, cam), name)
+    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
+    system = System(None, slam_config(world, torch_config), device="cuda")
+    cam = system.frontend.camera
+    f = system.frontend.process(*world.render_stereo(world.trajectory(1)[0]))
+    stereo = f.u_right >= 0
+    z = torch.where(stereo, f.depth, 5.0)
+    pc = torch.stack([(f.uv[:, 0] - cam.cx) * z / cam.fx, (f.uv[:, 1] - cam.cy) * z / cam.fy, z], dim=-1)
+    obs = torch.cat([f.uv, f.u_right[:, None]], dim=1).contiguous()
+    obs[::5, :2] += 40.0
+    T0 = torch.eye(4, device=cuda)
+    T0[:3, 3] = torch.tensor([0.05, -0.03, 0.08], device=cuda)
+    inv_sig = torch.ones_like(z)
+    args = (T0, pc.contiguous(), obs, inv_sig, stereo, f.valid)
+    _k5_same(pose_opt.pose_optimize(*args, cam), pose_opt.pose_optimize_plain(*args, cam), "extracted frame")
+
+
+def test_select_keypoints_exact(levels):
+    """K6 equals its plain version on the edge cases of `kernels/cases.py`
+    and on the 8 levels of a rendered stereo pair (K2's scores), with two
+    launches (cell pass, top-k pass) per call."""
+    dev = levels[0][0].device
+    frame = ("rendered frame", fast.fast_nms_levels([img for img, _, _ in levels]),
+             orb.features_per_level(orb.OrbParams()))
+    for name, scores, budgets in cases.k6_cases(dev) + [frame]:
+        before = orb.select_keypoints_levels.launches
+        got = orb.select_keypoints_levels(scores, budgets, 20.0, 7.0)
+        assert orb.select_keypoints_levels.launches == before + 2, name
+        want = orb.select_keypoints_levels_plain(scores, budgets, 20.0, 7.0)
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w)), name
+    # the extractor's keypoints are the plain selection's
+    for lvl, (img, xs, ys) in enumerate(levels):
+        assert torch.equal(got[0][lvl], xs) and torch.equal(got[1][lvl], ys)

@@ -5,7 +5,7 @@ the JAX tracker, on the first frames of tests/test_monocular.py's world.
 
 Both trackers run without a local mapper (as tests/test_torch_tracking.py
 does) over N_PARITY frames, on the same features (the port's front end's,
-converted for the JAX tracker: the ORB parity is tests/test_torch_ops.py's
+converted for the JAX tracker: the ORB parity is tests/test_torch_ops_fast.py's
 and tests/test_torch_frontend.py's, and compiling the JAX front end alone
 would take a third of this file's budget), the port's initializer fed the
 JAX tracker's own hypotheses (its Gumbel-top-8 draw from PRNGKey(frame
