@@ -19,9 +19,12 @@ PyTorch built for CUDA. It
      against its plain version on its edge cases (trees numbered
      depth-first, deeper and shallower than its staged levels, leaves
      inside them) and prints the levels it stages; holds the pose LM
-     kernel K5 against its plain version on its edge cases (inlier masks
-     and counts equal, the pose within 1e-6) and the keypoint selection
-     kernel K6 exactly on its edge cases; times the wrapper and
+     kernel K5 against its plain version on its edge cases and those of
+     its cluster layout (inlier masks and counts equal, the pose within
+     1e-6, a second launch equal to the first bit for bit) and the
+     keypoint selection kernel K6 exactly on its edge cases and those of
+     its block layout; prints ptxas's registers, stack and spills of
+     every kernel built; times the wrapper and
      the plain version with CUDA events around back-to-back calls; and
      computes each kernel's bound (bytes or operations at the published
      peaks) from the inputs;
@@ -709,12 +712,18 @@ def check_k5_pair(got, want, what):
 
 
 def check_k5_edge_cases():
-    """K5 against its plain version on the edge cases of `kernels/cases.py`."""
+    """K5 against its plain version on the edge cases of `kernels/cases.py`
+    (its cluster cases included), and a second launch on each equal to the
+    first bit for bit."""
     out = []
-    for name, args, cam in cases.k5_cases("cuda"):
-        gap, same = check_k5_pair(pose_opt.pose_optimize(*args, cam), pose_opt.pose_optimize_plain(*args, cam), name)
+    for name, args, cam in cases.k5_cases("cuda") + cases.k5_cluster_cases("cuda"):
+        got = pose_opt.pose_optimize(*args, cam)
+        gap, same = check_k5_pair(got, pose_opt.pose_optimize_plain(*args, cam), name)
+        again = pose_opt.pose_optimize(*args, cam)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"pose_lm: a second launch differs on {name}")
         out.append(f"{name}: {'bit-identical' if same else f'gap {gap:.2e}'}")
-    print(f"K5 pose_lm: inliers equal and pose within 1e-6 of plain on {len(out)} edge cases ({'; '.join(out)})")
+    print(f"K5 pose_lm (clusters of {pose_opt.K5_CLUSTER} CTAs): inliers equal and pose within 1e-6 of plain on "
+          f"{len(out)} edge cases, a second launch equal bit for bit on each ({'; '.join(out)})")
 
 
 def k5_bound(args):
@@ -753,9 +762,10 @@ def check_k5_main_path(calls):
 
 
 def check_k6_edge_cases():
-    """K6 exactly against its plain version on the edge cases of `kernels/cases.py`."""
+    """K6 exactly against its plain version on the edge cases of
+    `kernels/cases.py` (its block cases included)."""
     names = []
-    for name, scores, budgets in cases.k6_cases("cuda"):
+    for name, scores, budgets in cases.k6_cases("cuda") + cases.k6_block_cases("cuda"):
         got = orb.select_keypoints_levels(scores, budgets, 20.0, 7.0)
         want = orb.select_keypoints_levels_plain(scores, budgets, 20.0, 7.0)
         torch.cuda.synchronize()
@@ -2472,10 +2482,11 @@ def main():
         path = k.get("path", "main")
         n_launches = path_launches[path][name]
         per_frame_n = n_launches / path_frames[path]
-        print(f"{name}: {per_frame_n:.3f} launches/frame ({path} path); per launch: wrapper {t['ms']:.4f} ms, "
+        calls_per_frame = per_frame_n / k.get("per_call", 1)  # the times are per call
+        print(f"{name}: {per_frame_n:.3f} launches/frame ({path} path); per call: wrapper {t['ms']:.4f} ms, "
               f"device {t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}), roofline share {bound_ms / t['device_ms']:.2%}; per frame: wrapper "
-              f"{t['ms'] * per_frame_n:.4f} ms, device {t['device_ms'] * per_frame_n:.4f} ms; {smi}")
+              f"{t['ms'] * calls_per_frame:.4f} ms, device {t['device_ms'] * calls_per_frame:.4f} ms; {smi}")
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
             "launches": n_launches, "path": path, "launches_per_frame": per_frame_n, "max_abs_err": err,

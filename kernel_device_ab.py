@@ -1,6 +1,7 @@
 """Device-only time per frame of the front end's kernels K2 and K1, per
-matcher call of the Hamming kernel K3 and per launch of the BoW kernel K4,
-in one source tree of the port, for comparing two trees on one card.
+matcher call of the Hamming kernel K3, per launch of the BoW kernel K4, per
+call of the pose LM kernel K5 and of the keypoint selection kernel K6, in
+one source tree of the port, for comparing two trees on one card.
 
     python3 kernel_device_ab.py [--tree DIR] [--frames N]
 
@@ -29,6 +30,15 @@ frame's `stereo_match`, `search_by_projection_frame` and
 way: per call, the device time of its K3 launch, of all its device kernels
 (the gate construction, where the tree builds one, and the post-processing
 included) and their count.
+
+For K5 it records the arguments of frame 20's two `pose_optimize` calls
+(the motion-model and the local-map pose LM of the fused step) and for K6
+those of its `select_keypoints_levels` call (every level of both images),
+and times each call again the same way: K5's `pose_lm_kernel` per call,
+K6's two kernels summed per call; beside them, CUDA events around 200
+back-to-back calls. Where the tree's K5 takes a cluster size
+(`pose_opt.K5_CLUSTER`), K5 is also timed on the second call with clusters
+of 1, 4, 8 and 16 CTAs. K5 and K6 are timed first, then K4.
 
 For K4 it takes the descriptors of the last keyframe of that run (1200
 slots) and times one `transform_words_nodes` call against the generic
@@ -84,12 +94,26 @@ K3_FRAME = 20
 MATCHERS = ("stereo_match", "search_by_projection_frame", "search_by_projection_points")
 
 
+def _clone(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(_clone(a) for a in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(_clone(a) for a in x)
+    return x
+
+
 def matcher_calls(world, n_features=1200):
     """The tree's matcher calls of frame K3_FRAME of the synthetic sequence,
-    tracked on the card: {matcher name: (args, kwargs)} (the first call of
-    each), and the descriptors and valid flags of the last keyframe."""
+    tracked on the card: {matcher name: (fn, args, kwargs)} (the first call
+    of each), the descriptors and valid flags of the last keyframe, and
+    that frame's K5 and K6 calls {"k5": [(fn, args, kwargs)] (both),
+    "k6": [(fn, args, kwargs)]}."""
     from orbslam2_tpu_torch.config import CameraConfig, OrbConfig, SlamConfig
-    from orbslam2_tpu_torch.ops import matchers
+    from orbslam2_tpu_torch.ops import matchers, orb, pose_opt
     from orbslam2_tpu_torch.slam.system import System
 
     cfg = SlamConfig(camera=CameraConfig(fx=world.fx, fy=world.fy, cx=world.cx, cy=world.cy, bf=world.bf,
@@ -107,15 +131,84 @@ def matcher_calls(world, n_features=1200):
             return originals[name](*args, **kwargs)
         return run
 
+    kernel_calls = {"k5": [], "k6": []}
+    kernel_fns = {"k5": (pose_opt, "pose_optimize"), "k6": (orb, "select_keypoints_levels")}
+    kernel_originals = {k: getattr(owner, name) for k, (owner, name) in kernel_fns.items()}
+
+    def kernel_recording(k):
+        def run(*args, **kwargs):
+            kernel_calls[k].append((kernel_originals[k], _clone(args), _clone(kwargs)))
+            return kernel_originals[k](*args, **kwargs)
+        # a wrapper counts its launches through its module's global name
+        run.launches = getattr(kernel_originals[k], "launches", 0)
+        return run
+
     for name in MATCHERS:
         setattr(matchers, name, recording(name))
+    for k, (owner, name) in kernel_fns.items():
+        setattr(owner, name, kernel_recording(k))
     try:
         system.track_stereo(*frames[K3_FRAME], timestamp=K3_FRAME / 20.0)
     finally:
         for name, fn in originals.items():
             setattr(matchers, name, fn)
+        for k, (owner, name) in kernel_fns.items():
+            setattr(owner, name, kernel_originals[k])
     kf = system.map.kf_frame[max(system.map.kf_valid)].dev
-    return {name: (originals[name], *calls[name]) for name in MATCHERS}, (kf.desc, kf.valid)
+    return ({name: (originals[name], *calls[name]) for name in MATCHERS}, (kf.desc, kf.valid),
+            kernel_calls)
+
+
+def k5_k6_times(args, kernel_calls):
+    """K5's device-only ms per call on frame K3_FRAME's two pose_optimize
+    calls and K6's on its select_keypoints_levels call (both kernels), CUDA
+    events around 200 back-to-back calls beside each, and, where the tree
+    has `pose_opt.K5_CLUSTER`, K5's second call by cluster size."""
+    import torch
+
+    from orbslam2_tpu_torch.ops import pose_opt
+
+    def timed(call, kernel):
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        dev = summarize(frame_kernels(call, (kernel,), args.frames), kernel)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(200):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        return {"device_ms": dev["device_ms_per_frame"], "launches": dev["launches_per_frame"],
+                "calls_dropped": dev["frames_dropped"], "events_ms_per_call": start.elapsed_time(end) / 200}
+
+    out = {}
+    calls = [("k5_pose_lm_call_1", "pose_lm_kernel", c) for c in kernel_calls["k5"][:1]]
+    calls += [("k5_pose_lm_call_2", "pose_lm_kernel", c) for c in kernel_calls["k5"][1:2]]
+    calls += [("k6_select_keypoints", "select_keypoints_", c) for c in kernel_calls["k6"][:1]]
+    for label, kernel, (fn, a, kw) in calls:
+        out[label] = timed(lambda: fn(*a, **kw), kernel)
+        if kernel == "pose_lm_kernel":
+            out[label]["edges"] = int(a[1].shape[0])
+    for fn, a, kw in kernel_calls["k6"][:1]:  # K6's two kernels apart: the cell pass and the top-k pass
+        frames = frame_kernels(lambda: fn(*a, **kw), ("select_keypoints_cells", "select_keypoints_topk"),
+                               args.frames)
+        out["k6_cells_device_ms"] = summarize(frames, "select_keypoints_cells")["device_ms_per_frame"]
+        out["k6_topk_device_ms"] = summarize(frames, "select_keypoints_topk")["device_ms_per_frame"]
+    out["k5_calls_recorded"] = len(kernel_calls["k5"])
+    if hasattr(pose_opt, "K5_CLUSTER") and len(kernel_calls["k5"]) > 1:
+        fn, a, kw = kernel_calls["k5"][1]
+        default = pose_opt.K5_CLUSTER
+        by_cluster = {}
+        try:
+            for n_cta in (1, 4, 8, 16):
+                pose_opt.K5_CLUSTER = n_cta
+                by_cluster[n_cta] = timed(lambda: fn(*a, **kw), "pose_lm_kernel")["device_ms"]
+        finally:
+            pose_opt.K5_CLUSTER = default
+        out["k5_device_ms_by_cluster"] = by_cluster
+        out["k5_cluster_default"] = default
+    return out
 
 
 def k4_times(args, desc, valid):
@@ -200,9 +293,10 @@ def main():
         api = "one call per level"
 
     out = {"tree": os.path.abspath(args.tree), "api": api, "card": smi, "frames": args.frames}
-    # K4 first: profiler sessions late in a long run of them have traced no
-    # kernels on the H100
-    calls, (kf_desc, kf_valid) = matcher_calls(world)
+    # K5, K6 and K4 first: profiler sessions late in a long run of them have
+    # traced no kernels on the H100
+    calls, (kf_desc, kf_valid), kernel_calls = matcher_calls(world)
+    out.update(k5_k6_times(args, kernel_calls))
     out.update(k4_times(args, kf_desc, kf_valid))
     for name, fn, kernel in (("k2_fast_nms", k2, "fast_nms_kernel"), ("k1_orb_patch_desc", k1, "orb_patch_desc_kernel")):
         for _ in range(3):

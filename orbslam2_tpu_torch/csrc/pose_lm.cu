@@ -1,5 +1,5 @@
 // K5: the motion-only pose Levenberg-Marquardt, the whole 4 x 10 schedule
-// of one problem in one launch.
+// of one problem in one launch of a thread-block cluster.
 //
 // Replaces orbslam2_tpu/ops/pose_opt.py::pose_optimize (:193-226) with
 // _lm_optimize (:131-190), _residual_jacobian (:47-91) and _solve6
@@ -15,10 +15,10 @@
 //     mask (1, 1, is_stereo), chi2, the Huber weight, and the Jacobian rows
 //     K_c = [pc x a_c, a_c] (J = -K; a_c the row of d(u, v, uR)/dpc); the
 //     sums F, H (21 unique entries) and g = sum K^T W (-r);
-//   * one thread: lambda = 1e-5 max diag H, the 6x6 Cholesky (x = 0 where
-//     a pivot is <= 0 or NaN), the retract exp(dx) @ T (geometry/se3.py
-//     with its theta2 < 1e-8 branch), g2o's rho test and the lambda/nu
-//     update.
+//   * the LM step: lambda = 1e-5 max diag H, the damped 6x6 solve (x = 0
+//     where a pivot is <= 0 or NaN), the retract exp(dx) @ T
+//     (geometry/se3.py with its theta2 < 1e-8 branch), g2o's rho test and
+//     the lambda/nu update.
 // Everything is float64 from the float32 inputs, as the plain version; the
 // Huber widths and chi2 thresholds are float32 constants widened, as there.
 //
@@ -27,32 +27,90 @@
 // masks once (~36 KB) and writes the pose and the mask: ~0.01 us at 3.35
 // TB/s. Its float64 work is 44 passes x N x ~275 operations and 4
 // reclassifications x N x ~45, ~14.7 M operations: ~0.43 us at 34 TFLOP/s
-// (float64 outside the tensor cores; chip_smoke.py counts them). Neither bounds
-// it: the work is a chain of 44 dependent block reductions, each followed
-// by ~1,500 serial float64 operations on one thread (the Cholesky, sin and
-// cos, two 3x3 and one 3x4 product), so latency sets its time.
+// (float64 outside the tensor cores; chip_smoke.py counts them). Neither
+// bounds it: the work is a chain of 44 dependent passes, each a reduction
+// over every edge followed by the LM step, so latency sets its time.
 //
-// Design. One CTA of 256 threads per problem; edge i belongs to thread
-// i mod 256 in every pass, so each thread keeps its edges' outlier flags in
-// the output mask between rounds without a barrier. A pass sums each
-// thread's edges in index order, then each warp by shuffles in a fixed
-// tree, then the 8 warps in warp order: no float atomics, so the same
-// arguments give the same bits every launch (chip_smoke.py's
-// reproducibility phase replays whole runs). The edges are re-read from
-// global memory each pass (they stay in L1). Thread 0 keeps the LM state
-// (T, F, H, g, lambda, nu) in shared memory, out of the registers the sums
-// take, and publishes the next pose there. Shortening the chain (a warp per pass, or a batch of
-// problems per launch) is later work.
+// Design. The first design ran one CTA of 256 threads on one SM:
+// per pass ~5 edges a thread on that SM's float64 units, a block sum of 28
+// doubles by 5 shuffle rounds each, then ~1,500 dependent float64
+// operations on thread 0 out of shared memory while 255 threads waited:
+// 0.33 ms, ~7.5 us a pass. This design shortens each part of the pass:
+//   * A cluster of `cluster` CTAs (16 by default, with the non-portable
+//     cluster size attribute: it measured faster than 8 on the main path's
+//     problems; 1-16 are taken) works on one problem, each CTA on its
+//     contiguous slice of the edges. In a CTA, warps 0-7 sum edges (thread
+//     t on edges begin + t, begin + t + 256, ...: at N = 1200 at most one
+//     a thread) and warp 8 runs the LM step. The thread that owns an edge
+//     keeps its outlier flag (in the output mask) between rounds and
+//     reclassifies it at the start of the next round's first pass, so
+//     reclassification needs no exchange and no barrier of its own.
+//   * The 28 sums: a butterfly reduce-scatter in each edge warp (31 double
+//     shuffles for all 28, lane q ends with the warp's sum q, where one
+//     reduction per sum took 140; a warp without edges skips it and gives
+//     +0.0), the 8 warps added in warp order by the LM warp, which sends
+//     the CTA's 32 values to every CTA of the cluster with st.async into a
+//     pass-parity inbox in distributed shared memory; the store's
+//     completion counts bytes on the receiving CTA's mbarrier, which the
+//     LM warp waits on before it adds the CTAs' sums in rank order. Every
+//     order is fixed (a thread's edges in index order, the butterfly, the
+//     warps, the ranks), there are no float atomics, and a replay gives the
+//     same bits. A CTA writes pass p + 2's sums into an inbox only after it
+//     received every CTA's sums of pass p + 1, which each sent after reading
+//     pass p's. The pull through one cluster barrier a pass that the first
+//     form of this design used cost ~1,900 cycles a pass (the barrier
+//     ~1,250, the remote loads ~650; a remote mbarrier arrive per store was
+//     slower still, a bulk copy ~3x st.async; clock64 probes on the H100).
+//     The FP64 tensor cores (mma.m8n8k4.f64) were not taken for the sums:
+//     their fragments spread each row over 8 lanes, so laying one edge's
+//     3 x 7 terms into them costs more shuffles than the 81 multiply-adds a
+//     lane spends on them.
+//   * The LM step runs in the LM warp of every CTA on the same cluster-wide
+//     sums, so every CTA holds the same state bit for bit and no broadcast
+//     between CTAs is needed. Its state lives in that warp's registers,
+//     one value a lane (lane q: accepted sum q; lane k < 12: the accepted
+//     pose's entry k and the pass's pose; lane k < 6: the step), with
+//     lambda and nu in every lane; shuffles gather H, g and T into every
+//     lane, which runs the solve and the retract redundantly and keeps its
+//     own entry. The solve is the square-root-free Cholesky (L D L^T: its
+//     pivots d_j are the Cholesky's L_jj^2, so "a pivot <= 0 or NaN" is
+//     the same test) with one reciprocal a pivot; the retract calls sincos
+//     once and multiplies by reciprocals of theta and theta^2.
+//   * While the edge warps sum, the LM warp computes the rho test's
+//     denominator and the proposal that follows a rejection (the same
+//     H, g and pose, lambda * nu): a rejected pass costs the rho test only;
+//     an accepted one solves and retracts after its sums arrive.
+//   * Every loop has a constant trip count (the triangles as tests, the
+//     butterfly's widths as template arguments), so the sums and the
+//     solve's factors stay in registers: with a triangular inner loop the
+//     28 sums went to local memory and a pass took ~2x longer.
+//   * A pass has two CTA barriers and no cluster barrier; the cluster
+//     synchronizes once at the start (the mbarriers' initialization) and
+//     twice at the end (the inlier count).
+// What now sets the time (clock64 probes, a pass of ~6,000 cycles): one
+// edge's terms and the butterfly (~2,700), overlapped with the LM warp's
+// precomputed rejection; then the CTA sum, the send and the wait (~700),
+// the rho test (~350) and, on an accepted pass, the solve and the retract
+// (~2,000: six dependent reciprocals, the triangular solves, a square root
+// and sincos). chip_smoke.py and kernel_device_ab.py time the kernel.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <stdint.h>
 
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+constexpr int EDGE_WARPS = 8;                // warps 0-7 sum the edges
+constexpr int EDGE_THREADS = 32 * EDGE_WARPS;
+constexpr int LM_WARP = EDGE_WARPS;          // warp 8 runs the LM step
+constexpr int THREADS = EDGE_THREADS + 32;
 constexpr int NSUM = 28;  // F, H's lower triangle row by row (21), g (6)
+constexpr int MAX_CLUSTER = 16;
 constexpr unsigned kAll = 0xffffffffu;
 
 // Mirrors ops/pose_opt.py::_K5Args.
@@ -68,6 +126,7 @@ struct PoseLMArgs {
     int* n_inliers;           // [] out
     double fx, fy, cx, cy, bf;
     int n, n_rounds, n_iters;
+    int cluster;              // CTAs working on the problem
 };
 
 struct Edge {
@@ -104,6 +163,13 @@ __device__ __forceinline__ double huber_delta2(bool stereo) {
 }
 __device__ __forceinline__ double chi2_th(bool stereo) { return (double)(stereo ? 7.815f : 5.991f); }
 
+// Whether edge i is an outlier at the pose T: valid, and chi2 above its
+// threshold or behind the camera.
+__device__ __forceinline__ bool outlier_at(const PoseLMArgs& a, const double* T, int i) {
+    const Edge e = project(a, T, i);
+    return a.valid[i] && (e.e2 > chi2_th(e.stereo) || !(e.pc[2] > 0.0));
+}
+
 // Adds edge i's terms at T to acc (F, H lower, g).
 __device__ __forceinline__ void accumulate(const PoseLMArgs& a, const double* T, int i, bool active, bool huber,
                                            double* acc) {
@@ -125,90 +191,125 @@ __device__ __forceinline__ void accumulate(const PoseLMArgs& a, const double* T,
         const double wc = c < 2 ? w : w * (e.stereo ? 1.0 : 0.0);
         const double k[7] = {y * A[c][2] - z * A[c][1], z * A[c][0] - x * A[c][2], x * A[c][1] - y * A[c][0],
                              A[c][0], A[c][1], A[c][2], -e.r[c]};
-        int q = 1;
+        // constant trip counts (s <= r as a test), so that every loop
+        // unrolls and acc stays in registers
 #pragma unroll
         for (int r = 0; r < 6; ++r) {
             const double kw = k[r] * wc;
 #pragma unroll
-            for (int s = 0; s <= r; ++s) acc[q++] += kw * k[s];
+            for (int s = 0; s < 6; ++s)
+                if (s <= r) acc[1 + r * (r + 1) / 2 + s] += kw * k[s];
         }
 #pragma unroll
         for (int r = 0; r < 6; ++r) acc[22 + r] += (k[r] * wc) * k[6];
     }
 }
 
-// Sums acc over the block in a fixed order into tot (every thread's acc
-// is clobbered). Ends with a barrier: tot is readable by every thread.
-__device__ void block_sum(double* acc, double* red, double* tot) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One step of width H of the butterfly below: a lane keeps the half of
+// v[0 .. 2H) that its lane bit H selects and adds its partner's copy of
+// that half into v[0 .. H).
+template <int H>
+__device__ __forceinline__ void butterfly_step(double (&v)[32], int lane) {
+    const bool upper = (lane & H) != 0;
 #pragma unroll
-    for (int q = 0; q < NSUM; ++q) {
-        double v = acc[q];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kAll, v, off);
-        if (lane == 0) red[warp * NSUM + q] = v;
+    for (int j = 0; j < H; ++j) {
+        const double send = upper ? v[j] : v[j + H];
+        const double keep = upper ? v[j + H] : v[j];
+        v[j] = keep + __shfl_xor_sync(kAll, send, H);
     }
-    __syncthreads();
-    if (threadIdx.x < NSUM) {
-        double s = red[threadIdx.x];
-#pragma unroll
-        for (int w = 1; w < WARPS; ++w) s += red[w * NSUM + threadIdx.x];
-        tot[threadIdx.x] = s;
-    }
-    __syncthreads();
 }
 
-// x with A x = b (A 6x6, lower triangle read); 0 where a pivot is <= 0 or
-// NaN, as cholesky_ex's info != 0 in the plain version.
-__device__ void solve6(const double A[6][6], const double* b, double* x) {
-    double L[6][6];
+// The warp's sums of v[0..31]: lane l returns the sum of v[l] over the 32
+// lanes, by a fixed butterfly (31 shuffles for the 32 sums). The widths
+// are template arguments so that every index is a constant and v stays in
+// registers.
+__device__ __forceinline__ double warp_reduce_scatter(double (&v)[32], int lane) {
+    butterfly_step<16>(v, lane);
+    butterfly_step<8>(v, lane);
+    butterfly_step<4>(v, lane);
+    butterfly_step<2>(v, lane);
+    butterfly_step<1>(v, lane);
+    return v[0];
+}
+
+// x with (H + lam I) x = b (H: its lower triangle row by row), by the
+// square-root-free Cholesky L D L^T with one reciprocal a pivot; 0 where a
+// pivot is <= 0 or NaN, as cholesky_ex's info != 0 in the plain version.
+__device__ __forceinline__ void solve6(const double* H, double lam, const double* b, double* x) {
+    // every loop has a constant trip count (the triangle as a test), so
+    // that all of it unrolls into registers
+    double L[6][6], d[6], rd[6];
+    bool ok = true;
+#pragma unroll
     for (int j = 0; j < 6; ++j) {
-        double s = A[j][j];
-        for (int k = 0; k < j; ++k) s -= L[j][k] * L[j][k];
-        if (!(s > 0.0)) {
-            for (int i = 0; i < 6; ++i) x[i] = 0.0;
-            return;
-        }
-        L[j][j] = sqrt(s);
-        for (int i = j + 1; i < 6; ++i) {
-            double t = A[i][j];
-            for (int k = 0; k < j; ++k) t -= L[i][k] * L[j][k];
-            L[i][j] = t / L[j][j];
+        double u[6];  // L_jk d_k
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            if (k < j) u[k] = L[j][k] * d[k];
+        double s = H[j * (j + 1) / 2 + j] + lam;
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            if (k < j) s -= L[j][k] * u[k];
+        ok = ok && s > 0.0;
+        d[j] = s;
+        rd[j] = __drcp_rn(s);
+#pragma unroll
+        for (int i = 0; i < 6; ++i) {
+            if (i > j) {
+                double t = H[i * (i + 1) / 2 + j];
+#pragma unroll
+                for (int k = 0; k < 6; ++k)
+                    if (k < j) t -= L[i][k] * u[k];
+                L[i][j] = t * rd[j];
+            }
         }
     }
     double y[6];
+#pragma unroll
     for (int i = 0; i < 6; ++i) {
         double s = b[i];
-        for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-        y[i] = s / L[i][i];
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            if (k < i) s -= L[i][k] * y[k];
+        y[i] = s;
     }
-    for (int i = 5; i >= 0; --i) {
-        double s = y[i];
-        for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-        x[i] = s / L[i][i];
+#pragma unroll
+    for (int ii = 0; ii < 6; ++ii) {
+        const int i = 5 - ii;
+        double s = y[i] * rd[i];
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+            if (k > i) s -= L[k][i] * x[k];
+        x[i] = s;
     }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) x[i] = ok ? x[i] : 0.0;
 }
 
 // out = exp(dx) @ T for the 3x4 pose T (rows), dx = (omega, upsilon).
-__device__ void retract(const double* T, const double* dx, double* out) {
+__device__ __forceinline__ void retract(const double* T, const double* dx, double* out) {
     const double w0 = dx[0], w1 = dx[1], w2 = dx[2];
     const double theta2 = w0 * w0 + w1 * w1 + w2 * w2;
-    const double theta = sqrt(fmax(theta2, 1e-16));
     double A, B, C;
     if (theta2 < 1e-8) {
         A = 1.0 - theta2 / 6.0;
         B = 0.5 - theta2 / 24.0;
         C = 1.0 / 6.0 - theta2 / 120.0;
     } else {
-        const double s = sin(theta);
-        A = s / theta;
-        B = (1.0 - cos(theta)) / theta2;
-        C = (theta - s) / (theta2 * theta);
+        const double theta = sqrt(theta2);
+        double s, c;
+        sincos(theta, &s, &c);
+        const double rt = __drcp_rn(theta), rt2 = __drcp_rn(theta2);
+        A = s * rt;
+        B = (1.0 - c) * rt2;
+        C = (theta - s) * rt2 * rt;
     }
     const double W[3][3] = {{0.0, -w2, w1}, {w2, 0.0, -w0}, {-w1, w0, 0.0}};
     double R[3][3], t[3];
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
         double V[3];
+#pragma unroll
         for (int j = 0; j < 3; ++j) {
             const double W2 = W[i][0] * W[0][j] + W[i][1] * W[1][j] + W[i][2] * W[2][j];
             const double I = i == j ? 1.0 : 0.0;
@@ -217,126 +318,256 @@ __device__ void retract(const double* T, const double* dx, double* out) {
         }
         t[i] = V[0] * dx[3] + V[1] * dx[4] + V[2] * dx[5];
     }
+#pragma unroll
     for (int i = 0; i < 3; ++i)
+#pragma unroll
         for (int j = 0; j < 4; ++j)
             out[4 * i + j] = R[i][0] * T[j] + R[i][1] * T[4 + j] + R[i][2] * T[8 + j] + (j == 3 ? t[i] : 0.0);
 }
 
-// Thread 0's LM step: dx from (H + lambda I) dx = -g, sT = exp(dx) @ T.
-__device__ void propose(const double* T, const double* H, const double* g, double lam, double* dx, double* sT) {
-    double A[6][6];
-    int q = 0;
-    for (int r = 0; r < 6; ++r)
-        for (int s = 0; s <= r; ++s) A[r][s] = H[q++] + (r == s ? lam : 0.0);
-    solve6(A, g, dx);
-    for (int i = 0; i < 6; ++i) dx[i] = -dx[i];
-    retract(T, dx, sT);
+// v[lane] for a register array v[n] (selects: no local memory).
+template <int n>
+__device__ __forceinline__ double lane_entry(const double (&v)[n], int lane) {
+    double out = v[0];
+#pragma unroll
+    for (int k = 1; k < n; ++k) out = lane == k ? v[k] : out;
+    return out;
 }
 
-// Thread 0's LM state, in shared memory (registers are taken by the sums).
-struct LMState {
-    double T0[12], T[12], H[21], g[6], dx[6], F, lam, ni;
-};
+// The LM step's proposal from the accepted state (sums acc_l and pose T_l,
+// one value a lane) at damping lam: dx = -(H + lam I)^-1 g and exp(dx) @ T.
+// Every lane computes both; lane k keeps entry k of each.
+__device__ __forceinline__ void propose(double acc_l, double T_l, double lam, int lane, double& P_l,
+                                        double& dx_l) {
+    double H[21], g[6], Tm[12], dx[6], next[12];
+#pragma unroll
+    for (int q = 0; q < 21; ++q) H[q] = __shfl_sync(kAll, acc_l, 1 + q);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) g[q] = __shfl_sync(kAll, acc_l, 22 + q);
+#pragma unroll
+    for (int k = 0; k < 12; ++k) Tm[k] = __shfl_sync(kAll, T_l, k);
+    solve6(H, lam, g, dx);
+#pragma unroll
+    for (int q = 0; q < 6; ++q) dx[q] = -dx[q];
+    retract(Tm, dx, next);
+    P_l = lane_entry(next, lane);
+    dx_l = lane_entry(dx, lane);
+}
 
-__global__ void __launch_bounds__(THREADS) pose_lm_kernel(const PoseLMArgs a) {
-    __shared__ double sT[12];  // the pose of the next pass
-    __shared__ double red[WARPS * NSUM];
-    __shared__ double tot[NSUM];
-    __shared__ LMState st;
+// g2o's rho denominator dx^T (lam dx + b), b = -g, summed in index order,
+// from the state one value a lane (lane k < 6: dx_k; lane 22 + k: g_k).
+__device__ __forceinline__ double rho_denominator(double acc_l, double dx_l, double lam, int lane) {
+    const double g_l = __shfl_sync(kAll, acc_l, 22 + (lane < 6 ? lane : 0));
+    const double term = dx_l * (lam * dx_l - g_l);
+    double denom = 0.0;
+#pragma unroll
+    for (int q = 0; q < 6; ++q) denom += __shfl_sync(kAll, term, q);
+    return denom;
+}
+
+// The exchange of the CTAs' sums: each CTA's LM warp writes its 32 values
+// into every CTA's inbox with st.async, whose completion counts bytes on the
+// receiving CTA's mbarrier; a CTA waits on its own mbarrier, then reads its
+// inbox. Addresses are 32-bit shared-window addresses.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+    uint32_t out;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+    return out;
+}
+__device__ __forceinline__ void mbar_init(uint32_t mbar, unsigned count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(mbar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t mbar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(mbar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t mbar, unsigned parity) {
+    asm volatile(
+        "{\n"
+        ".reg .pred done;\n"
+        "WAIT:\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+        "@!done bra WAIT;\n"
+        "}\n" ::"r"(mbar),
+        "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t remote, double v, uint32_t remote_mbar) {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];" ::"r"(remote),
+                 "l"(__double_as_longlong(v)), "r"(remote_mbar)
+                 : "memory");
+}
+
+__global__ void __launch_bounds__(THREADS, 1) pose_lm_kernel(const PoseLMArgs a) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank(), n_cta = (int)cluster.num_blocks();
+    __shared__ double sT0[12];                      // T0, widened
+    __shared__ double sT[12];                       // the pass's pose; after a round, its final pose
+    __shared__ double red[EDGE_WARPS][32];          // the edge warps' sums
+    __shared__ double inbox[2][MAX_CLUSTER][32];    // every CTA's sums, by pass parity
+    __shared__ unsigned long long mbar[2];          // inbox[parity] complete
     __shared__ int s_count;
-    const int tid = threadIdx.x;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool lm = warp == LM_WARP;
+    const unsigned inbox_bytes = (unsigned)n_cta * 32 * sizeof(double);
+    // this CTA's contiguous slice of the edges
+    const int begin = (int)((long long)a.n * rank / n_cta);
+    const int end = (int)((long long)a.n * (rank + 1) / n_cta);
 
+    if (tid < 12) sT0[tid] = sT[tid] = (double)a.T0[tid];
     if (tid == 0) {
-        for (int k = 0; k < 12; ++k) st.T0[k] = (double)a.T0[k];
         s_count = 0;
+        mbar_init(smem_addr(&mbar[0]), 1);
+        mbar_init(smem_addr(&mbar[1]), 1);
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        mbar_expect_tx(smem_addr(&mbar[0]), inbox_bytes);  // passes 0 and 1
+        mbar_expect_tx(smem_addr(&mbar[1]), inbox_bytes);
     }
-    for (int i = tid; i < a.n; i += THREADS) a.inlier[i] = false;  // outlier flags
+    if (!lm)
+        for (int i = begin + tid; i < end; i += EDGE_THREADS) a.inlier[i] = false;  // outlier flags
+    cluster.sync();  // every CTA's mbarriers initialized before any st.async
 
+    // the LM warp's state, one value a lane, the same in every CTA
+    double acc_l = 0.0;  // lane q < NSUM: the accepted pass's sum q
+    double T_l = 0.0;    // lane k < 12: the accepted pose's entry k
+    double P_l = 0.0;    // lane k < 12: the pass's pose's entry k
+    double dx_l = 0.0;   // lane k < 6: the step's entry k
+    double lam = 0.0, ni = 2.0;
+    double PR_l = 0.0, dxR_l = 0.0, denom = 0.0;  // the next proposal if this pass's is rejected
+
+    int pass = 0;
     for (int round = 0; round < a.n_rounds; ++round) {
         const bool huber = round < a.n_rounds - 1;
-        if (tid == 0)
-            for (int k = 0; k < 12; ++k) sT[k] = st.T0[k];
-        __syncthreads();
-        for (int it = 0; it <= a.n_iters; ++it) {
-            double acc[NSUM];
+        if (lm && lane < 12) P_l = sT0[lane];
+        for (int it = 0; it <= a.n_iters; ++it, ++pass) {
+            const int par = pass & 1;
+            if (!lm) {
+                double T[12];
 #pragma unroll
-            for (int q = 0; q < NSUM; ++q) acc[q] = 0.0;
-            for (int i = tid; i < a.n; i += THREADS) accumulate(a, sT, i, a.valid[i] && !a.inlier[i], huber, acc);
-            block_sum(acc, red, tot);
-            if (tid == 0) {
+                for (int k = 0; k < 12; ++k) T[k] = it == 0 ? sT0[k] : sT[k];
+                double v[32];
+#pragma unroll
+                for (int q = 0; q < 32; ++q) v[q] = 0.0;
+                for (int i = begin + tid; i < end; i += EDGE_THREADS) {
+                    bool out = a.inlier[i];
+                    if (it == 0 && round > 0) {  // reclassify at the last round's pose
+                        out = outlier_at(a, sT, i);
+                        a.inlier[i] = out;
+                    }
+                    accumulate(a, T, i, a.valid[i] && !out, huber, v);
+                }
+                // a warp without edges sums zeros: +0.0, as its butterfly would
+                red[warp][lane] = begin + 32 * warp < end ? warp_reduce_scatter(v, lane) : 0.0;
+            } else if (it > 0) {
+                // while the edges are summed: the rho denominator, and the
+                // next proposal for the case that this pass is rejected
+                denom = rho_denominator(acc_l, dx_l, lam, lane);
+                if (it < a.n_iters) propose(acc_l, T_l, lam * ni, lane, PR_l, dxR_l);
+            }
+            __syncthreads();
+            if (lm) {
+                double s = red[0][lane];
+#pragma unroll
+                for (int w = 1; w < EDGE_WARPS; ++w) s += red[w][lane];
+                const uint32_t slot = smem_addr(&inbox[par][rank][lane]), mb = smem_addr(&mbar[par]);
+                for (int r = 0; r < n_cta; ++r) st_async(cluster_addr(slot, r), s, cluster_addr(mb, r));
+                mbar_wait(mb, (unsigned)(pass >> 1) & 1u);
+                double tot = inbox[par][0][lane];  // the CTAs' sums in rank order
+#pragma unroll
+                for (int r = 1; r < MAX_CLUSTER; ++r)
+                    if (r < n_cta) tot += inbox[par][r][lane];
+                if (lane == 0) mbar_expect_tx(mb, inbox_bytes);  // re-armed for pass + 2
+                const double F_new = __shfl_sync(kAll, tot, 0);
                 bool take = it == 0;  // the round's start at T0
                 if (take) {
-                    st.ni = 2.0;
+                    ni = 2.0;
                 } else {
-                    const double F_new = tot[0];
-                    // g2o rho denominator: dx^T (lam dx + b), b = -g
-                    double denom = 0.0;
-                    for (int q = 0; q < 6; ++q) denom += st.dx[q] * (st.lam * st.dx[q] - st.g[q]);
-                    const double rho = (st.F - F_new) / (denom + 1e-12);
+                    const double F = __shfl_sync(kAll, acc_l, 0);
+                    const double rho = (F - F_new) / (denom + 1e-12);
                     take = rho > 0.0 && isfinite(F_new);
                     if (take) {
                         const double qq = 2.0 * rho - 1.0;
-                        st.lam *= fmax(1.0 - qq * qq * qq, 1.0 / 3.0);
-                        st.ni = 2.0;
+                        lam *= fmax(1.0 - qq * qq * qq, 1.0 / 3.0);
+                        ni = 2.0;
                     } else {
-                        st.lam *= st.ni;
-                        st.ni *= 2.0;
+                        lam *= ni;
+                        ni *= 2.0;
                     }
                 }
                 if (take) {
-                    for (int k = 0; k < 12; ++k) st.T[k] = sT[k];
-                    st.F = tot[0];
-                    for (int q = 0; q < 21; ++q) st.H[q] = tot[1 + q];
-                    for (int q = 0; q < 6; ++q) st.g[q] = tot[22 + q];
+                    acc_l = tot;
+                    T_l = P_l;
                 }
-                if (it == 0) {
-                    const double* H = st.H;
-                    st.lam = 1e-5 * fmax(fmax(fmax(H[0], H[2]), fmax(H[5], H[9])), fmax(H[14], H[20]));
+                if (it == 0) {  // H's diagonal: sums 1, 3, 6, 10, 15, 21
+                    const double d0 = __shfl_sync(kAll, acc_l, 1), d1 = __shfl_sync(kAll, acc_l, 3);
+                    const double d2 = __shfl_sync(kAll, acc_l, 6), d3 = __shfl_sync(kAll, acc_l, 10);
+                    const double d4 = __shfl_sync(kAll, acc_l, 15), d5 = __shfl_sync(kAll, acc_l, 21);
+                    lam = 1e-5 * fmax(fmax(fmax(d0, d1), fmax(d2, d3)), fmax(d4, d5));
                 }
                 if (it < a.n_iters) {
-                    double next[12];
-                    propose(st.T, st.H, st.g, st.lam, st.dx, next);
-                    for (int k = 0; k < 12; ++k) sT[k] = next[k];
+                    if (take) {
+                        propose(acc_l, T_l, lam, lane, P_l, dx_l);
+                    } else {  // computed above with the same lam * ni
+                        P_l = PR_l;
+                        dx_l = dxR_l;
+                    }
                 } else {
-                    for (int k = 0; k < 12; ++k) sT[k] = st.T[k];
+                    P_l = T_l;  // the round's result: reclassified at, and the next T0's successor
                 }
+                if (lane < 12) sT[lane] = P_l;
             }
             __syncthreads();
         }
-        // reclassify at the round's pose (sT)
-        for (int i = tid; i < a.n; i += THREADS) {
-            const Edge e = project(a, sT, i);
-            a.inlier[i] = a.valid[i] && (e.e2 > chi2_th(e.stereo) || !(e.pc[2] > 0.0));
-        }
-        __syncthreads();
     }
 
     int count = 0;
-    for (int i = tid; i < a.n; i += THREADS) {
-        const bool in = a.valid[i] && !a.inlier[i];
-        a.inlier[i] = in;
-        count += in;
+    if (!lm) {
+        for (int i = begin + tid; i < end; i += EDGE_THREADS) {
+            const bool out = a.n_rounds > 0 ? outlier_at(a, sT, i) : a.inlier[i];
+            const bool in = a.valid[i] && !out;
+            a.inlier[i] = in;
+            count += in;
+        }
     }
     count = __reduce_add_sync(kAll, count);
-    if ((tid & 31) == 0) atomicAdd(&s_count, count);
-    __syncthreads();
-    if (tid == 0) {
-        const double* Tf = a.n_rounds > 0 ? sT : st.T0;
-        for (int k = 0; k < 12; ++k) a.Tcw[k] = (float)Tf[k];
-        a.Tcw[12] = 0.0f;
-        a.Tcw[13] = 0.0f;
-        a.Tcw[14] = 0.0f;
-        a.Tcw[15] = 1.0f;
-        *a.n_inliers = s_count;
+    if (lane == 0) atomicAdd(&s_count, count);
+    cluster.sync();
+    if (rank == 0 && tid == 0) {
+        int total = 0;
+        for (int r = 0; r < n_cta; ++r) total += *cluster.map_shared_rank(&s_count, r);
+        *a.n_inliers = total;
     }
+    if (rank == 0 && tid < 16) a.Tcw[tid] = tid < 12 ? (float)sT[tid] : (tid == 15 ? 1.0f : 0.0f);
+    cluster.sync();  // no CTA leaves while rank 0 reads its count
 }
 
 }  // namespace
 
-// args: host pointer to a PoseLMArgs. One CTA for the problem.
+// args: host pointer to a PoseLMArgs. One cluster of `cluster` CTAs for the
+// problem; a refused launch (cluster size, attribute) returns its error.
 extern "C" int pose_lm_launch(void* args, void* stream) {
     const PoseLMArgs& a = *static_cast<const PoseLMArgs*>(args);
-    if (a.n < 0 || a.n_rounds < 0 || a.n_iters < 0) return (int)cudaErrorInvalidValue;
-    pose_lm_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(a);
+    if (a.n < 0 || a.n_rounds < 0 || a.n_iters < 0 || a.cluster < 1 || a.cluster > MAX_CLUSTER)
+        return (int)cudaErrorInvalidValue;
+    if (a.cluster > 8) {
+        const cudaError_t err = cudaFuncSetAttribute(pose_lm_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        if (err != cudaSuccess) return (int)err;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(a.cluster, 1, 1);
+    cfg.blockDim = dim3(THREADS, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = (cudaStream_t)stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = a.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, pose_lm_kernel, a);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

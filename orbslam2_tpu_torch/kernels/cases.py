@@ -49,6 +49,20 @@ k < n_target padding), tie-heavy scores, scores at the key's clamp, a
 level whose 30 px cells straddle the grid's cells, and a frame's 8 levels
 of random sparse scores. `tests/test_torch_select_pose_cases.py` holds the
 plain versions to the JAX package's functions on them on the CPU.
+
+`k5_cluster_raw_cases()` adds problems for K5's cluster (each CTA sums a
+slice of the edges, warp 0 of every CTA runs the LM step): N = 0, N < 32
+(fewer edges than CTAs x warps), N that the cluster's slices do not divide,
+every edge an outlier from the start, an indefinite H (every pivot <= 0),
+a NaN in H (a NaN pivot in every pass), and steps that stay in the
+retract's small-angle branch. `k6_block_raw_cases()` adds levels for K6's
+blocks (30-row bands by 240-column chunks, grid cells merged from the
+blocks they straddle): a level of one grid cell, ragged right and bottom
+cells, all-zero and all-hi levels, a budget above the candidate count
+(c = 4), grid cells wider than a chunk and taller than three bands, and
+the best keys of grid cells on the rows and columns where bands and
+chunks meet. `tests/test_torch_kernels.py` and `chip_smoke.py` hold the
+kernels to their plain versions on both sets on the card.
 """
 
 from __future__ import annotations
@@ -570,3 +584,73 @@ def k6_cases(device, seed: int = 0):
     """[(name, [scores per level], [budgets])] on `device`."""
     return [(name, [torch.from_numpy(s).to(device) for s in levels], budgets)
             for name, levels, budgets in k6_raw_cases(seed)]
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: cases of the cluster and block layouts
+# ---------------------------------------------------------------------------
+
+
+def k5_cluster_raw_cases(seed: int = 0):
+    """[(name, [T0, pw, obs, inv_sigma2, is_stereo, valid])] as numpy (as
+    `k5_raw_cases`), for the camera K5_CAMERA."""
+    rng = np.random.default_rng(seed)
+    out = [("N = 0", [a[:0] if i else a for i, a in enumerate(_k5_problem(rng, 8))])]
+    out.append(("N = 20 (< 32)", _k5_problem(rng, 20)))
+    out.append(("N = 1203 (the slices of 8 CTAs differ by one)", _k5_problem(rng, 1203, outlier_frac=0.15)))
+    out.append(("N = 37", _k5_problem(rng, 37, outlier_frac=0.1)))
+    a = _k5_problem(rng, 1203, outlier_frac=0.0)
+    a[2][:, :2] += (rng.uniform(300, 500, (1203, 2)) * rng.choice([-1, 1], (1203, 2))).astype(np.float32)
+    out.append(("every edge an outlier from the start", a))
+    a = _k5_problem(rng, 300)
+    a[3][:] = -1.0
+    out.append(("indefinite H (negative weights: every pivot <= 0)", a))
+    a = _k5_problem(rng, 300)
+    a[3][7] = np.nan
+    out.append(("a NaN weight (NaN pivots)", a))
+    # T0 off the true pose by a translation only, noise-free stereo
+    # observations: the steps' rotations stay below theta2 = 1e-8
+    pw = rng.uniform([-5, -3, 4], [5, 3, 25], (400, 3))
+    T_true = _pose([0.02, -0.03, 0.01], [0.3, -0.2, 0.15])
+    T0 = T_true.copy()
+    T0[:3, 3] += [0.002, -0.001, 0.003]
+    out.append(("small steps (the retract's theta2 < 1e-8 branch)",
+                [T0.astype(np.float32), pw.astype(np.float32), _project(T_true, pw).astype(np.float32),
+                 np.ones(400, np.float32), np.ones(400, bool), np.ones(400, bool)]))
+    return out
+
+
+def k5_cluster_cases(device, seed: int = 0):
+    """`k5_cluster_raw_cases` as (name, args, camera) on `device`."""
+    from ..geometry.camera import make_camera
+
+    cam = make_camera(*K5_CAMERA)
+    return [(name, tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device) for x in args), cam)
+            for name, args in k5_cluster_raw_cases(seed)]
+
+
+def k6_block_raw_cases(seed: int = 0):
+    """[(name, [masked scores per level], [budget per level])] as numpy (as
+    `k6_raw_cases`)."""
+    rng = np.random.default_rng(seed)
+    out = [("a level of one grid cell", [_nms3(_sparse_scores(rng, 2, 10, 10, 0.5))], [1])]
+    out.append(("ragged right and bottom cells (333 x 517)", [_nms3(_sparse_scores(rng, 2, 333, 517, 0.05))], [150]))
+    out.append(("all zeros", [np.zeros((2, 200, 300), np.float32)], [80]))
+    out.append(("every pixel above ini_th", [np.full((2, 130, 260), 50.0, np.float32)], [60]))
+    out.append(("a budget above the candidates (c = 4)", [_nms3(_sparse_scores(rng, 2, 100, 120, 0.2))], [2000]))
+    out.append(("grid cells wider than a chunk (c = 283)", [_nms3(_sparse_scores(rng, 2, 480, 752, 0.02))], [4]))
+    # each grid cell's best keys on the rows and columns where the cell
+    # pass's bands (30 rows) and chunks (240 columns) meet
+    s = _sparse_scores(rng, 2, 300, 520, 0.02, 60.0)
+    for y in (29, 30, 59, 60, 89, 90, 149, 150, 239, 240):
+        s[:, y, 17:-17:3] = rng.uniform(150, 250, (2, len(range(17, 520 - 17, 3))))
+    for x in (239, 240, 479, 480):
+        s[:, 17:-17:2, x] = rng.uniform(150, 250, (2, len(range(17, 300 - 17, 2))))
+    out.append(("best keys where bands and chunks meet", [_nms3(s)], [120]))
+    return out
+
+
+def k6_block_cases(device, seed: int = 0):
+    """`k6_block_raw_cases` on `device`."""
+    return [(name, [torch.from_numpy(s).to(device) for s in levels], budgets)
+            for name, levels, budgets in k6_block_raw_cases(seed)]

@@ -182,9 +182,17 @@ class _SelArgs(ctypes.Structure):
     _fields_ = [
         ("lv", _SelLevel * MAX_LEVELS),
         ("xs", ctypes.c_void_p), ("ys", ctypes.c_void_p), ("resp", ctypes.c_void_p), ("valid", ctypes.c_void_p),
-        ("cand", ctypes.c_void_p), ("ini_th", ctypes.c_float), ("min_th", ctypes.c_float),
-        ("n_levels", ctypes.c_int), ("n_images", ctypes.c_int), ("n_blocks", ctypes.c_int),
+        ("part", ctypes.c_void_p), ("part_len", ctypes.c_longlong), ("ini_th", ctypes.c_float),
+        ("min_th", ctypes.c_float), ("n_levels", ctypes.c_int), ("n_images", ctypes.c_int),
+        ("n_blocks", ctypes.c_int),
     ]
+
+
+def _partial_slots(c: int, gy: int, gx: int) -> int:
+    """Scratch ints of one image of a level in csrc/select_keypoints.cu: a
+    pair per grid cell and per cell-pass block it can overlap (30-row bands
+    by 240-column chunks)."""
+    return gy * gx * ((c + CELL - 2) // CELL + 1) * ((c + 8 * CELL - 2) // (8 * CELL) + 1) * 2
 
 
 _count_lock = threading.Lock()
@@ -207,7 +215,7 @@ def select_keypoints_levels(scores, budgets, ini_th: float, min_th: float):
         raise ValueError(f"select_keypoints_levels: unsupported device {dev}")
     B = scores[0].shape[0]
     args = _SelArgs(ini_th=ini_th, min_th=min_th, n_levels=len(scores), n_images=B)
-    n_out = n_cand = 0
+    n_out = n_part = 0
     for d, s, n_t in zip(args.lv, scores, budgets):
         shape = s.shape
         if (s.device != dev or s.dtype != torch.float32 or len(shape) != 3 or shape[0] != B
@@ -218,13 +226,14 @@ def select_keypoints_levels(scores, budgets, ini_th: float, min_th: float):
         d.score, d.h, d.w, d.n_target = s.data_ptr(), shape[1], shape[2], n_t
         d.c, d.gy, d.gx, d.pos_bits = c, gy, gx, pos_bits
         n_out += n_t
-        n_cand += 2 * gy * gx
+        n_part += _partial_slots(c, gy, gx)
     xs, ys = (torch.empty(B * n_out, dtype=torch.int32, device=dev) for _ in range(2))
     resp = torch.empty(B * n_out, dtype=torch.float32, device=dev)
     valid = torch.empty(B * n_out, dtype=torch.bool, device=dev)
-    cand = torch.empty(B * n_cand, dtype=torch.int32, device=dev)
-    args.xs, args.ys, args.resp, args.valid, args.cand = (
-        t.data_ptr() for t in (xs, ys, resp, valid, cand))
+    part = torch.empty(B * n_part, dtype=torch.int32, device=dev)
+    args.xs, args.ys, args.resp, args.valid, args.part = (
+        t.data_ptr() for t in (xs, ys, resp, valid, part))
+    args.part_len = B * n_part
     build.launch("select_keypoints_launch", args)
     if args.n_blocks:
         with _count_lock:

@@ -11,21 +11,23 @@ whose third residual component is masked out.
 `pose_optimize` is the wrapper: on CPU tensors it runs the plain version,
 `pose_optimize_plain`; on CUDA tensors it makes ONE launch of the
 hand-written kernel `csrc/pose_lm.cu`, which runs the whole schedule in
-one CTA and writes the pose, the inlier mask and the inlier count on the
-device (no host sync). Both compute the same float64 math in the same
-steps:
+one thread-block cluster (`K5_CLUSTER` CTAs, each on a slice of the edges)
+and writes the pose, the inlier mask and the inlier count on the device
+(no host sync). Both compute the same float64 math in the same steps:
 
   * per edge, the residual r, the Jacobian rows K_c = [pc x a_c, a_c]
     (J = -K, a_c the row of d(u, v, uR)/dpc) and the weight;
   * the sums F, H (its 21 unique entries) and g = sum K^T W (-r);
-  * on the host (the plain version) or one thread (the kernel), the 6x6
-    Cholesky solve (x = 0 where a pivot is <= 0 or NaN, what
+  * on the host (the plain version) or one warp of each CTA (the kernel),
+    the damped 6x6 solve (x = 0 where a pivot is <= 0 or NaN, what
     `cholesky_ex`'s info != 0 gave), the retract exp(dx) @ T
     (geometry/se3.py, its small-angle branch included), g2o's rho test
     and the lambda/nu update.
 
 They differ only in the order of the float64 sums, in contracted
-multiply-adds and in the last bits of sin and cos.
+multiply-adds, in the last bits of sin and cos, and in the kernel's
+square-root-free Cholesky (L D L^T, the same pivots) with reciprocals
+where the plain version divides.
 """
 
 from __future__ import annotations
@@ -230,7 +232,14 @@ class _K5Args(ctypes.Structure):
         ("Tcw", ctypes.c_void_p), ("inlier", ctypes.c_void_p), ("n_inliers", ctypes.c_void_p),
         ("fx", ctypes.c_double), ("fy", ctypes.c_double), ("cx", ctypes.c_double), ("cy", ctypes.c_double),
         ("bf", ctypes.c_double), ("n", ctypes.c_int), ("n_rounds", ctypes.c_int), ("n_iters", ctypes.c_int),
+        ("cluster", ctypes.c_int),
     ]
+
+
+#: CTAs of the cluster that runs one problem (csrc/pose_lm.cu: 1-16; above
+#: 8 the launcher sets the non-portable cluster size attribute). 16 measured
+#: faster than 8 on the main path's problems (PERF.md, kernel_device_ab.py)
+K5_CLUSTER = 16
 
 
 _count_lock = threading.Lock()
@@ -241,7 +250,8 @@ def pose_optimize(T0, pw, obs, inv_sigma2, is_stereo, valid, cam: Camera,
     """Full 4-round schedule over N edges: T0 [4,4], pw [N,3] world points,
     obs [N,3] (u, v, uR), inv_sigma2 [N], is_stereo [N], valid [N] (edge
     exists). CPU tensors take `pose_optimize_plain`; CUDA tensors (float32
-    T0, pw, obs, inv_sigma2, bool masks) take one launch of K5.
+    T0, pw, obs, inv_sigma2, bool masks) take one launch of K5, a cluster
+    of `K5_CLUSTER` CTAs; a refused launch raises.
 
     The schedule runs in float64 (the reference's g2o is double) and
     returns a float32 pose: in float32, the LM's accept/reject test near
@@ -258,7 +268,7 @@ def pose_optimize(T0, pw, obs, inv_sigma2, is_stereo, valid, cam: Camera,
             "obs": (obs, torch.float32, (N, 3)), "inv_sigma2": (inv_sigma2, torch.float32, (N,)),
             "is_stereo": (is_stereo, torch.bool, (N,)), "valid": (valid, torch.bool, (N,))}
     args = _K5Args(fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, bf=cam.bf, n=N, n_rounds=n_rounds,
-                   n_iters=n_iters)
+                   n_iters=n_iters, cluster=K5_CLUSTER)
     keep = []
     for name, (t, dtype, shape) in want.items():
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:

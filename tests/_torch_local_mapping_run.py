@@ -1,4 +1,4 @@
-"""One run of the local-mapping parity sequence, shared by
+"""The local-mapping parity sequence, shared by
 tests/test_torch_local_mapping.py and tests/test_torch_local_mapping_jax.py.
 
 The world of tests/test_local_mapping.py (seed 11, 1200 features): the
@@ -8,20 +8,29 @@ frame 28 each package relocalizes the kidnapped view of frame 16 with the
 same vocabulary (the JAX package's `vocab/train.py`, k = 8, depth 3, as
 tests/test_relocalization.py trains it, carried across with
 `convert.vocabulary_to_torch`). `relocalize` changes only the frame it is
-given, so the port's tracker runs on undisturbed.
+given and its relocalizer's own seeded random stream, so the port
+relocalizes on a copy of its map as it stood after frame 28
+(`port_relocalization`) and its tracker runs on undisturbed.
 
-The two files hold 4 and 2 tests, so xdist's `--dist loadfile` queue
-puts them after tests/test_mesh_loop.py; the run is made once per session
-all the same: the first file to need it makes it under a file lock in the
-session's temporary directory (shared by the xdist workers) and leaves
-its results there as plain data, and the other reads them.
+The sequence is made in two parts, each once per session: the JAX
+package's ("jax": its run, the vocabulary, its relocalization) and the
+port's ("port": its run, with the copy of its map at frame 28). The two
+files hold 4 and 2 tests, so xdist's `--dist loadfile` queue puts them
+after tests/test_mesh_loop.py, on two workers: the port's file makes the
+port part, the JAX file the JAX part and then reads (or, if the other
+file has not started it, makes) the port part; each part is made under a
+file lock in the session's temporary directory (shared by the xdist
+workers) and left there as plain data.
 """
 
 from __future__ import annotations
 
+import copy
 import fcntl
 import os
 import pickle
+import threading
+import types
 
 import numpy as np
 from _torch_parity import slam_config
@@ -75,7 +84,15 @@ def _relocalize(reloc_cls, frame_cls, tracker, vocab, frame_images, frame_id):
     return list(cands), (np.asarray(frame.Tcw) if ok else None), accepted
 
 
-def _run():
+def _world():
+    from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
+
+    return SyntheticWorld(n_points=900, seed=11, baseline=0.2)
+
+
+def _run_jax():
+    """The JAX package's pair through frame 28, the vocabulary trained on its
+    map (as numpy arrays), and its relocalization of frame 16's view."""
     from orbslam2_tpu import config as jax_config
     from orbslam2_tpu.slam.frontend import FrameHost as JaxFrameHost
     from orbslam2_tpu.slam.frontend import Frontend as JaxFrontend
@@ -83,24 +100,39 @@ def _run():
     from orbslam2_tpu.slam.map import SlamMap as JaxMap
     from orbslam2_tpu.slam.relocalization import Relocalizer as JaxRelocalizer
     from orbslam2_tpu.slam.tracking import Tracker as JaxTracker
-    from orbslam2_tpu_torch import config as torch_config
-    from orbslam2_tpu_torch import convert
-    from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
-    from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
-    from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
-    from orbslam2_tpu_torch.slam.map import SlamMap
-    from orbslam2_tpu_torch.slam.relocalization import Relocalizer
-    from orbslam2_tpu_torch.slam.tracking import Tracker
 
-    world = SyntheticWorld(n_points=900, seed=11, baseline=0.2)
-    poses_gt, frames = world.render_sequence(N_FRAMES + N_LOCALIZATION, step=0.06)
+    world = _world()
+    _, frames = world.render_sequence(N_PARITY, step=0.06)
     jt = _pair(jax_config, JaxFrontend, JaxMap, JaxTracker, JaxMapper, world)
     jax_out = []
-    for i, (imL, imR) in enumerate(frames[:N_PARITY]):
+    for i, (imL, imR) in enumerate(frames):
         T = jt.track(imL, imR, i / 20.0)
         jax_out.append((jt.state.name, None if T is None else np.asarray(T), jt.map.n_keyframes()))
     voc = _train_vocabulary(jt.map)
     jax_reloc = _relocalize(JaxRelocalizer, JaxFrameHost, jt, voc, frames[KIDNAPPED], N_PARITY)
+    voc_arrays = {name: np.asarray(getattr(voc, name))
+                  for name in ("children_desc", "children_idx", "node_word", "word_weight")}
+    voc_arrays.update(k=int(voc.k), depth=int(voc.depth))
+    return dict(jax_out=jax_out, jax_reloc=jax_reloc, voc=voc_arrays)
+
+
+def _map_copy(m):
+    """The port map's state without its lock and database hook (which a
+    copy does not share), deep-copied."""
+    return copy.deepcopy({k: v for k, v in vars(m).items() if k not in ("lock", "on_keyframe_removed")})
+
+
+def _run_port():
+    """The port's pair over all 45 frames (a copy of its map after frame
+    28), then 6 frames in localization mode."""
+    from orbslam2_tpu_torch import config as torch_config
+    from orbslam2_tpu_torch.slam.frontend import Frontend
+    from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
+    from orbslam2_tpu_torch.slam.map import SlamMap
+    from orbslam2_tpu_torch.slam.tracking import Tracker
+
+    world = _world()
+    poses_gt, frames = world.render_sequence(N_FRAMES + N_LOCALIZATION, step=0.06)
     tt = _pair(torch_config, Frontend, SlamMap, Tracker, LocalMapper, world, device="cpu")
     port_out, n_ba = [], []
     for i, (imL, imR) in enumerate(frames[:N_FRAMES]):
@@ -108,8 +140,7 @@ def _run():
         port_out.append((tt.state.name, T, tt.map.n_keyframes()))
         n_ba.append(tt.local_mapper.n_local_ba)
         if i == N_PARITY - 1:
-            port_reloc = _relocalize(Relocalizer, FrameHost, tt, convert.vocabulary_to_torch(voc, "cpu"),
-                                     frames[KIDNAPPED], N_PARITY)
+            map_at_parity = _map_copy(tt.map)
     m, lm = tt.map, tt.local_mapper
     mapping = dict(
         state=tt.state.name, n_processed=lm.n_processed, n_created=lm.n_created,
@@ -126,24 +157,46 @@ def _run():
         T = tt.track(*frames[i], i / 20.0)
         loc_out.append((tt.state.name, T, len(tt.last_frame.temp_points), tt._can_fuse()))
     localization = dict(out=loc_out, n_kf=(n_kf, m.n_keyframes()), n_pts=(n_pts, len(m.pt_valid)))
-    return dict(jax_out=jax_out, port_out=port_out, n_ba=n_ba, mapping=mapping, poses_gt=poses_gt[:N_FRAMES],
-                poses_loc=poses_gt[N_FRAMES:], reloc=(jax_reloc, port_reloc), localization=localization)
+    return dict(port_out=port_out, n_ba=n_ba, mapping=mapping, poses_gt=poses_gt[:N_FRAMES],
+                poses_loc=poses_gt[N_FRAMES:], localization=localization, map_at_parity=map_at_parity,
+                kidnapped=frames[KIDNAPPED])
 
 
-def shared_runs(tmp_path_factory) -> dict:
-    """The run's results, made by the first caller of this session and read
-    by the others (the xdist workers of one session share the parent of
-    their temporary directories)."""
+def port_relocalization(jax_part, port_part):
+    """The port's relocalization of frame 16's view on its map after frame
+    28, with the JAX part's vocabulary: as `_relocalize`."""
+    from orbslam2_tpu_torch import config as torch_config
+    from orbslam2_tpu_torch import convert
+    from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
+    from orbslam2_tpu_torch.slam.map import SlamMap
+    from orbslam2_tpu_torch.slam.relocalization import Relocalizer
+
+    cfg = slam_config(_world(), torch_config)
+    m = SlamMap.__new__(SlamMap)
+    m.__dict__.update(copy.deepcopy(port_part["map_at_parity"]))
+    m.lock, m.on_keyframe_removed = threading.RLock(), None
+    tracker = types.SimpleNamespace(config=cfg, frontend=Frontend(cfg, device="cpu"), map=m)
+    voc = convert.vocabulary_to_torch(types.SimpleNamespace(**jax_part["voc"]), "cpu")
+    return _relocalize(Relocalizer, FrameHost, tracker, voc, port_part["kidnapped"], N_PARITY)
+
+
+_PARTS = {"jax": _run_jax, "port": _run_port}
+
+
+def shared_part(tmp_path_factory, name: str) -> dict:
+    """Part `name` ("jax" or "port") of the run, made by its first caller of
+    this session and read by the others (the xdist workers of one session
+    share the parent of their temporary directories)."""
     base = tmp_path_factory.getbasetemp()
     where = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
-    path = where / "torch_local_mapping_run.pkl"
-    with open(where / "torch_local_mapping_run.lock", "w") as lock:
+    path = where / f"torch_local_mapping_{name}.pkl"
+    with open(where / f"torch_local_mapping_{name}.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if path.exists():
                 with open(path, "rb") as f:
                     return pickle.load(f)
-            runs = _run()
+            runs = _PARTS[name]()
             part = path.with_suffix(".part")
             with open(part, "wb") as f:
                 pickle.dump(runs, f)

@@ -300,6 +300,36 @@ def test_pose_lm_matches_plain(cuda):
     _k5_same(pose_opt.pose_optimize(*args, cam), pose_opt.pose_optimize_plain(*args, cam), "extracted frame")
 
 
+def test_pose_lm_cluster_cases(cuda):
+    """K5's cluster layout (`kernels/cases.py::k5_cluster_cases`: N = 0,
+    N < 32, N that the CTAs' slices do not divide, every edge an outlier,
+    an indefinite H, NaN pivots, small-angle steps) against its plain
+    version, one launch per call, and a second launch on the same
+    arguments equal to the first bit for bit (fixed-order sums)."""
+    for name, args, cam in cases.k5_cluster_cases(cuda):
+        before = pose_opt.pose_optimize.launches
+        got = pose_opt.pose_optimize(*args, cam)
+        again = pose_opt.pose_optimize(*args, cam)
+        assert pose_opt.pose_optimize.launches == before + 2, name
+        _k5_same(got, pose_opt.pose_optimize_plain(*args, cam), name)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b), name
+
+
+def test_select_keypoints_block_cases(cuda):
+    """K6's block layout (`kernels/cases.py::k6_block_cases`: one grid
+    cell, ragged cells, all zeros, all hi, a budget above the candidates,
+    grid cells wider than a chunk, best keys where bands and chunks meet)
+    exactly against its plain version, two launches per call."""
+    for name, scores, budgets in cases.k6_block_cases(cuda):
+        before = orb.select_keypoints_levels.launches
+        got = orb.select_keypoints_levels(scores, budgets, 20.0, 7.0)
+        assert orb.select_keypoints_levels.launches == before + 2, name
+        want = orb.select_keypoints_levels_plain(scores, budgets, 20.0, 7.0)
+        for g, w in zip(got, want):
+            assert all(torch.equal(a, b) for a, b in zip(g, w)), name
+
+
 def test_select_keypoints_exact(levels):
     """K6 equals its plain version on the edge cases of `kernels/cases.py`
     and on the 8 levels of a rendered stereo pair (K2's scores), with two

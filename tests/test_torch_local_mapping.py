@@ -3,7 +3,8 @@ tests/test_local_mapping.py (same world, seed 11, 1200 features), on the
 CPU, with that file's bars; then localization mode on its map. The
 parity with the JAX package's pair through frame 28, and relocalization
 on the map of frame 28, are in tests/test_torch_local_mapping_jax.py; both
-files read one run of the sequence (tests/_torch_local_mapping_run.py).
+files read one run of the port's sequence (the "port" part of
+tests/_torch_local_mapping_run.py).
 
 Stated bars: all 45 frames tracked, ATE RMSE < 0.05 m, > 200 points with
 two or more keyframe observations, every keyframe but the first
@@ -15,7 +16,7 @@ unchanged, visual-odometry points matched.
 
 import numpy as np
 import pytest
-from _torch_local_mapping_run import center, shared_runs
+from _torch_local_mapping_run import center, shared_part
 
 from orbslam2_tpu_torch.evaluation.ate import ate_rmse
 from orbslam2_tpu_torch.slam.tracking import TrackingState
@@ -23,7 +24,7 @@ from orbslam2_tpu_torch.slam.tracking import TrackingState
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return shared_runs(tmp_path_factory)
+    return shared_part(tmp_path_factory, "port")
 
 
 def test_tracks_with_mapping(runs):

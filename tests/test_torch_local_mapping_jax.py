@@ -3,7 +3,9 @@ built as in tests/test_local_mapping.py (same world, seed 11, 1200
 features), on the CPU, through frame 28; then relocalization on the map
 of frame 28 in both packages. The port alone over all 45 frames and
 localization mode are in tests/test_torch_local_mapping.py; both files
-read one run of the sequence (tests/_torch_local_mapping_run.py).
+read one run of the port's sequence, and this one the JAX package's too
+(tests/_torch_local_mapping_run.py: the JAX part first, which the other
+file does not need, so the two parts are made side by side).
 
 Stated tolerances: through frame 28, which runs the second local BA, the
 same tracking state and keyframe count every frame and camera centres
@@ -20,12 +22,16 @@ truth.
 
 import numpy as np
 import pytest
-from _torch_local_mapping_run import KIDNAPPED, N_PARITY, center, shared_runs
+from _torch_local_mapping_run import KIDNAPPED, N_PARITY, center, port_relocalization, shared_part
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return shared_runs(tmp_path_factory)
+    jax_part = shared_part(tmp_path_factory, "jax")
+    port_part = shared_part(tmp_path_factory, "port")
+    return dict(jax_out=jax_part["jax_out"], port_out=port_part["port_out"], n_ba=port_part["n_ba"],
+                poses_gt=port_part["poses_gt"],
+                reloc=(jax_part["jax_reloc"], port_relocalization(jax_part, port_part)))
 
 
 def test_matches_jax_through_second_local_ba(runs):
