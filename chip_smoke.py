@@ -178,9 +178,31 @@ PyTorch built for CUDA. It
      before and read just after: >= 1 loop, both sharded solvers built and
      run on every shard, ATE RMSE < 0.45 m (that test's bar), K1-K4
      launched;
-  10. prints each phase's wall time, one JSON line of the phases' results,
+  9f. cold starts (run right after the kernels' checks): `System(VOCAB,
+     cfg)` in a fresh spawned process, without and then with
+     `System.precompile()`: the slice's 40 frames, 3 black frames, frame
+     16's view relocalized, one Sim3 detection between the newest and the
+     oldest keyframe; the host ms of frame 0, frame 1, the relocalizing
+     attempt and the Sim3 detection, and the precompile's seconds;
+  9g. the pipelined slice (after phase 5c): the 40 frames on `System(VOCAB,
+     cfg, enable_loop_closing=False)` synchronous, then with
+     `pipelined_tracking` on, launch counts set to 0 just before and read
+     after each; the pipelined dispatch (assembly, fused step, host copy)
+     under `torch.cuda.set_sync_debug_mode("error")`; p50 and max ms/frame
+     of each (frames 2..29) and the device's busy share over frames 30-39
+     under the profiler; bars: 40 entries, >= 38 solved, ATE < 0.10 m,
+     nothing pending after shutdown, K1, K2, K3 `stereo` once and K6 twice a
+     frame, K5 and K3 `frame` twice a dispatched frame;
+  9h. the COO bundle adjustment (after phase 6b): the slice's first local
+     BA as a COO problem, `ba.ba_solve` twice (bit-identical), against
+     `ba_solve_pm` on the same problem and on 2 shards of the card
+     (`dist_ba.make_distributed_ba`) against one device
+     (tests/test_dist_ba.py's bars), with the host ms of each;
+  10. prints each phase's wall time, the script's total, one JSON line of
+     the phases' results,
      one JSON line describing the kernels (K1, K2, one row per K3 mode
-     and caller, K4, K5 and K6), then the result line.
+     and caller, K4, K5 and K6; each with its launches on its path and on
+     the pipelined slice), then the result line.
 
 It exits non-zero, and prints no result, when any phase fails, when no
 CUDA card is visible, or when the port cannot be imported.
@@ -190,6 +212,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import functools
 import hashlib
 import io
@@ -222,6 +245,7 @@ from orbslam2_tpu_torch.slam.frontend import FrameHost, Frontend
 from orbslam2_tpu_torch.slam.local_mapping import LocalMapper
 from orbslam2_tpu_torch.slam.relocalization import CANDIDATES, Relocalizer
 from orbslam2_tpu_torch.slam.system import Sensor, System
+from orbslam2_tpu_torch.slam import tracking
 from orbslam2_tpu_torch.slam.tracking import TrackingState
 from orbslam2_tpu_torch.vocab import bow
 
@@ -355,6 +379,12 @@ THREADED_MAX_EXTRA = 300
 # closes (tests/test_mesh_loop.py's 200)
 MESH_SHARDS = 2
 MESH_MAX_EXTRA = 200
+# the pipelined phase: the slice's frames on a System with pipelined
+# tracking on and, for the same measurements, off; its last frames under
+# the profiler (the device's busy share); tests/test_pipelined_tracking.py's
+# ATE bar
+N_PIPE_PROFILED = 10
+PIPE_ATE_BAR = 0.10
 # the device of the monocular, MLPnP, undistortion and circuit phases (a
 # rehearsal of them on the CPU sets "cpu")
 DEVICE = "cuda"
@@ -2329,6 +2359,253 @@ def run_viewer(cfg, frames, tmp) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def sync_errors():
+    """`torch.cuda.set_sync_debug_mode("error")` inside: a CUDA call that
+    makes the host wait for the device raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def guard_dispatch(stack, tracker, dispatched: list):
+    """Inside `stack`: the pipelined dispatch of `tracker` (`_assemble_fused`
+    two frames ahead, `_full_step` with no_wait, the `_HostCopy` behind it)
+    under `sync_errors`, and each dispatched frame's id appended to
+    `dispatched`."""
+
+    def guarded(when):
+        def wrap(fn):
+            def run(*a, **k):
+                if not when(k):
+                    return fn(*a, **k)
+                with sync_errors():
+                    return fn(*a, **k)
+            return run
+        return wrap
+
+    def recording(fn):
+        def run(images_u8, timestamp):
+            dispatched.append(tracker.frame_id)
+            return fn(images_u8, timestamp)
+        return run
+
+    stack.enter_context(patched(tracker, "_assemble_fused", guarded(lambda k: "pred_steps" in k)))
+    stack.enter_context(patched(tracker, "_full_step", guarded(lambda k: k.get("no_wait", False))))
+    stack.enter_context(patched(tracking, "_HostCopy", guarded(lambda k: True)))
+    stack.enter_context(patched(tracker, "_track_pipelined", recording))
+
+
+def device_busy(prof):
+    """(device ms, device events) of a profile, from its raw events:
+    building `prof.events()` over tens of thousands of kernels takes tens of
+    seconds."""
+    from torch.autograd import DeviceType
+
+    evs = [e for e in prof.profiler.kineto_results.events() if e.device_type() == DeviceType.CUDA]
+    return sum(e.duration_ns() for e in evs) / 1e6, len(evs)
+
+
+def run_pipelined(cfg, frames, poses_gt):
+    """The pipelined phase: the slice's frames on `System(VOCAB, cfg,
+    enable_loop_closing=False)`, synchronous, then with pipelined tracking
+    on, each with its launch counts set to 0 just before its first frame and
+    read after its shutdown; frames 2..N-N_PIPE_PROFILED-1 timed on the host
+    clock, the last N_PIPE_PROFILED under `torch.profiler` (the device's
+    busy share of the wall time). The pipelined dispatch runs under
+    `set_sync_debug_mode("error")`; a third run, pipelined without that
+    guard, shows the guard's own cost. Run in a spawned process: profiler
+    sessions in the main process before the kernels' device timings made
+    those lose launches. Bars: synchronous, the slice's (>= N-1 solved, ATE
+    < 0.06 m); pipelined, N trajectory entries, >= N-2 solved,
+    ATE < PIPE_ATE_BAR over the solved entries, nothing pending after
+    shutdown; K1, K2, K3 `stereo` once and K6 twice a frame, K5 twice and K3
+    `frame` twice (both motion windows) on every dispatched frame. Returns
+    (results, the pipelined run's launch counts)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, n_timed = {}, N_FRAMES - N_PIPE_PROFILED
+    for mode in ("synchronous", "pipelined", "pipelined, dispatch not guarded"):
+        system = System(VOCAB, dataclasses.replace(cfg, pipelined_tracking=mode != "synchronous"),
+                        enable_loop_closing=False)
+        tracker, dispatched, ms = system.tracker, [], []
+        with contextlib.ExitStack() as stack:
+            if mode == "pipelined":
+                guard_dispatch(stack, tracker, dispatched)
+            reset_launch_counts()
+            for i in range(n_timed):
+                t0 = time.perf_counter()
+                system.track_stereo(*frames[i], timestamp=i / 20.0)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for i in range(n_timed, N_FRAMES):
+                    system.track_stereo(*frames[i], timestamp=i / 20.0)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            system.shutdown()
+            torch.cuda.synchronize()
+            launches = launch_counts()
+        busy_ms, n_device = device_busy(prof)
+        spans = {k: statistics.mean(v) / 1e3 for k, v in system.timers.samples.items()
+                 if k.startswith("Fused") or k == "Total tracking"}
+        traj = tracker.trajectory
+        solved = [(g, e.Tcw) for g, e in zip(poses_gt, traj) if e.Tcw is not None and not e.lost]
+        rmse = ate_rmse(np.stack([center(e) for _, e in solved]), np.stack([center(g) for g, _ in solved]))
+        out[mode] = dict(
+            entries=len(traj), solved=len(solved), ate_rmse_m=rmse, dispatched=len(dispatched),
+            pending_after_shutdown=len(tracker._pending), ms_per_frame_p50=statistics.median(ms[2:]),
+            ms_per_frame_max=max(ms[2:]), profiled_ms_per_frame=wall_ms / N_PIPE_PROFILED,
+            device_busy_share=busy_ms / wall_ms, device_events_per_frame=n_device / N_PIPE_PROFILED,
+            mean_span_ms=spans,
+            launches_per_frame={k: v / N_FRAMES for k, v in launches.items() if v})
+        print(f"pipelined phase, {mode}: {out[mode]}")
+    s, p = out["synchronous"], out["pipelined"]
+    check(s["solved"] >= N_FRAMES - 1 and s["ate_rmse_m"] < 0.06, f"synchronous slice: {s}")
+    check(p["entries"] == N_FRAMES and p["solved"] >= N_FRAMES - 2 and p["ate_rmse_m"] < PIPE_ATE_BAR
+          and p["pending_after_shutdown"] == 0 and p["dispatched"] > 0, f"pipelined slice: {p}")
+    for name in ("fast_nms", "orb_patch_desc", "hamming_best2:stereo"):
+        check(launches[name] == N_FRAMES, f"pipelined: {name} {launches[name]} launches over {N_FRAMES} frames")
+    check(launches["select_keypoints"] == 2 * N_FRAMES, f"pipelined: K6 {launches['select_keypoints']} launches")
+    for name in ("pose_lm", "hamming_best2:frame"):
+        check(launches[name] >= 2 * p["dispatched"],
+              f"pipelined: {name} {launches[name]} launches for {p['dispatched']} dispatched frames")
+    print(f"pipelined slice: {p['solved']}/{N_FRAMES} solved, ATE {p['ate_rmse_m']:.4f} m, {p['dispatched']} frames "
+          f"dispatched with no host sync, p50 {p['ms_per_frame_p50']:.2f} ms (synchronous {s['ms_per_frame_p50']:.2f}), "
+          f"max {p['ms_per_frame_max']:.2f} ({s['ms_per_frame_max']:.2f}), device busy "
+          f"{p['device_busy_share']:.1%} ({s['device_busy_share']:.1%})")
+    return out, launches
+
+
+def cold_start(cfg, frames, warm: bool) -> dict:
+    """In a process of its own (spawned, so CUDA starts cold): `System(VOCAB,
+    cfg)` with loop closing on, warmed by `precompile` first when `warm`;
+    the slice's frames tracked, N_BLACK black frames (LOST, no reset), frame
+    KIDNAPPED's view relocalized, then one Sim3 detection (`LoopCloser.
+    _compute_sim3`) between the newest and the oldest keyframe. Host ms
+    (each ending synchronised) of frame 0, frame 1, the relocalizing attempt
+    and the Sim3 detection."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    system = System(VOCAB, cfg)
+    out = dict(warm=warm, construct_s=time.perf_counter() - t0)
+    if warm:
+        out["precompile_s"] = system.precompile()
+    ms = []
+    for i in range(len(frames)):
+        t0 = time.perf_counter()
+        system.track_stereo(*frames[i], timestamp=i / 20.0)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    black = np.zeros_like(frames[0][0])
+    n_kf = system.map.n_keyframes()
+    for j in range(N_BLACK):
+        system.track_stereo(black, black, timestamp=100.0 + j / 20.0)
+    reset = system.map.n_keyframes() != n_kf
+    reloc, attempts = system.relocalizer, []
+    relocalize = reloc.relocalize
+
+    def timed(frame):
+        t0 = time.perf_counter()
+        ok = relocalize(frame)
+        torch.cuda.synchronize()
+        attempts.append(((time.perf_counter() - t0) * 1e3, frame))
+        return ok
+
+    reloc.relocalize = timed
+    T = system.track_stereo(*frames[KIDNAPPED], timestamp=101.0)
+    if attempts:  # the same attempt again, warm
+        timed(attempts[0][1])
+    del reloc.relocalize
+    lc, kfs = system.loop_closer, sorted(system.map.kf_valid)
+    sim3 = []
+    for _ in range(2):  # the first Sim3 detection, then the same again, warm
+        lc._candidates = [kfs[0]]
+        t0 = time.perf_counter()
+        found = lc._compute_sim3(kfs[-1])
+        torch.cuda.synchronize()
+        sim3.append((time.perf_counter() - t0) * 1e3)
+    system.shutdown()
+    out.update(frame0_ms=ms[0], frame1_ms=ms[1], steady_p50_ms=statistics.median(ms[2:]),
+               relocalized=T is not None and not reset,
+               first_relocalization_ms=attempts[0][0] if attempts else None,
+               repeated_relocalization_ms=attempts[1][0] if attempts else None, sim3_detection_ms=sim3[0],
+               repeated_sim3_detection_ms=sim3[1], sim3_found=bool(found), keyframes=len(kfs))
+    return out
+
+
+def run_precompile(cfg, frames) -> dict:
+    """The precompile phase: `cold_start` in a fresh process without, then
+    with, `System.precompile`; the kidnapped view relocalizes and a Sim3 is
+    computed in both (a Sim3 that fails a gate is reported, not checked)."""
+    out = {}
+    for warm in (False, True):
+        with multiprocessing.get_context("spawn").Pool(1) as pool:
+            key = "with_precompile" if warm else "without"
+            out[key] = pool.apply(cold_start, (cfg, frames, warm))
+        print(f"cold start {key}: {out[key]}")
+        check(out[key]["relocalized"] and out[key]["first_relocalization_ms"] is not None,
+              f"cold start {key}: the kidnapped view did not relocalize ({out[key]})")
+        check_later(out[key]["sim3_found"], f"cold start {key}: no Sim3 between the first and last keyframe")
+    return out
+
+
+def pm_to_coo(prob: ba.BAProblemPM) -> ba.BAProblem:
+    """The COO problem of a point-major one: one edge per valid slot, in row
+    order."""
+    p, d = torch.nonzero(prob.edge_valid, as_tuple=True)
+    return ba.BAProblem(poses=prob.poses, points=prob.points, obs_kf=prob.obs_kf[p, d], obs_pt=p,
+                        obs=prob.obs[p, d], inv_sigma2=prob.inv_sigma2[p, d], is_stereo=prob.is_stereo[p, d],
+                        edge_valid=torch.ones_like(p, dtype=torch.bool), pose_fixed=prob.pose_fixed)
+
+
+def run_coo_ba(local_ba) -> dict:
+    """The COO phase: the slice's recorded first local BA as a COO problem,
+    solved by `ba.ba_solve` twice (bit-identical), by the point-major
+    `ba_solve_pm` on the recorded problem, and on a mesh of 2 shards of the
+    card (`dist_ba.make_distributed_ba`) against one device, with
+    tests/test_dist_ba.py's bars (poses within 5e-4, median point within
+    1e-3, chi2 within 1e-3 relative). Host ms of each (the second of two
+    calls, ending synchronised)."""
+    (pm, cam, *_), _, _ = local_ba
+    coo = pm_to_coo(pm)
+    dev = pm.poses.device
+    mesh = Mesh([dev] * 2)
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    r1, coo_ms = timed(lambda: ba.ba_solve(coo, cam))
+    r2 = ba.ba_solve(coo, cam)
+    rpm, pm_ms = timed(lambda: ba.ba_solve_pm(pm, cam))
+    sharded, sharded_ms = timed(lambda: dist_ba.make_distributed_ba(mesh, cam)(coo))
+    torch.cuda.synchronize()
+    replays = all(torch.equal(a, b) for a, b in zip(r1, r2))
+    pose_gap = float((sharded.poses - r1.poses).abs().max())
+    point_gap = float((sharded.points - r1.points).norm(dim=1).median())
+    chi2_gap = abs(float(sharded.final_chi2) - float(r1.final_chi2)) / max(float(r1.final_chi2), 1e-12)
+    out = dict(keyframes=pm.poses.shape[0], points=pm.points.shape[0], edges=coo.obs.shape[0],
+               replays_equal=replays, coo_host_ms=coo_ms, pm_host_ms=pm_ms, sharded_host_ms=sharded_ms,
+               shards_pose_gap=pose_gap, shards_median_point_gap_m=point_gap, shards_chi2_gap_rel=chi2_gap,
+               coo_vs_pm_pose_gap=float((r1.poses - rpm.poses).abs().max()),
+               coo_chi2=float(r1.final_chi2), pm_chi2=float(rpm.final_chi2))
+    print(f"COO bundle adjustment on the recorded local BA: {out}")
+    check(replays, "COO BA: two replays differ")
+    check(pose_gap < 5e-4 and point_gap < 1e-3 and chi2_gap < 1e-3, f"COO BA on 2 shards: {out}")
+    return out
+
+
 def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2362,6 +2639,10 @@ def main():
     check_k4_edge_cases()
     check_k5_edge_cases()
     check_k6_edge_cases()
+    # cold starts, each in a fresh process, without and with System.precompile
+    t0 = time.perf_counter()
+    cold = run_precompile(cfg, frames)
+    phase_done("cold starts and precompile (2 processes)", t0, times)
 
     reset_launch_counts()
     system, est, ms, per_frame, fused, calls, ba_devices, local_ba, recorded = run_slice(
@@ -2412,6 +2693,10 @@ def main():
     phase_done("slice and relocalization", t_main, times)
     mlpnp_reloc = run_mlpnp_relocalization(system, frames, poses_gt, times)
     undistortion = check_undistortion(cfg, frames, times)
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        pipelined, pipe_launches = pool.apply(run_pipelined, (cfg, frames, poses_gt))
+    phase_done("pipelined and synchronous slices (own process)", t0, times)
     # loop closing: a System of its own on the loop world's figure-8
     t0 = time.perf_counter()
     loop, loop_launches, loop_calls, loop_ransac, loop_graph, loop_gba = run_loop()
@@ -2420,6 +2705,9 @@ def main():
     check(local_ba is not None, "no local BA was recorded on the slice")
     loop["reproducibility"] = check_reproducible(local_ba, loop_gba, loop_graph)
     phase_done("loop", t0, times)
+    t0 = time.perf_counter()
+    coo = run_coo_ba(local_ba)
+    phase_done("COO bundle adjustment", t0, times)
     # the monocular slice: a System of its own, before the kernel profiling
     mono, mono_launches, mono_rows = run_mono(times)
     results.update(mono_rows)
@@ -2483,13 +2771,17 @@ def main():
         n_launches = path_launches[path][name]
         per_frame_n = n_launches / path_frames[path]
         calls_per_frame = per_frame_n / k.get("per_call", 1)  # the times are per call
-        print(f"{name}: {per_frame_n:.3f} launches/frame ({path} path); per call: wrapper {t['ms']:.4f} ms, "
+        pipe_per_frame = pipe_launches[name] / N_FRAMES
+        print(f"{name}: {per_frame_n:.3f} launches/frame ({path} path; pipelined slice {pipe_per_frame:.3f}); "
+              f"per call: wrapper {t['ms']:.4f} ms, "
               f"device {t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms "
               f"({bound_by}), roofline share {bound_ms / t['device_ms']:.2%}; per frame: wrapper "
               f"{t['ms'] * calls_per_frame:.4f} ms, device {t['device_ms'] * calls_per_frame:.4f} ms; {smi}")
         rows.append({
             "name": name, "route": "cuda", "source": k["source"], "replaces": k["replaces"],
-            "launches": n_launches, "path": path, "launches_per_frame": per_frame_n, "max_abs_err": err,
+            "launches": n_launches, "path": path, "launches_per_frame": per_frame_n,
+            "pipelined_launches": pipe_launches[name], "pipelined_launches_per_frame": pipe_per_frame,
+            "max_abs_err": err,
             **t, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         })
 
@@ -2530,6 +2822,7 @@ def main():
     ranks_dir.cleanup()
     times["total"] = time.perf_counter() - t_main
     print(f"phase times (s): {times}")
+    print(f"chip_smoke.py total: {times['total']:.1f} s")
 
     check(not DEFERRED, f"{len(DEFERRED)} deferred check(s) failed: {DEFERRED}")
     print(json.dumps({"slice": {
@@ -2540,7 +2833,8 @@ def main():
         "localization": {k: v for k, v in localization.items() if k != "launches"}, "loop": loop,
         "mlpnp_relocalization": mlpnp_reloc, "undistortion": undistortion, "mono": mono, "mono_loop": mono_loop,
         "threaded_loop": threaded_loop, "checkpoint": checkpoint, "disk": disk, "rectifier": rectifier,
-        "viewer": viewer, "mesh": mesh, "phase_seconds": times}, default=str))
+        "viewer": viewer, "mesh": mesh, "pipelined": pipelined, "cold_start": cold, "coo_ba": coo,
+        "phase_seconds": times}, default=str))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

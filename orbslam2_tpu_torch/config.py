@@ -7,10 +7,10 @@ existing dataset YAMLs drop in.
 
 This file is a copy of orbslam2_tpu/config.py, which imports no JAX: the
 port imports nothing of the JAX package, so that it runs where that
-package is absent. It leaves out the fields only the JAX package reads:
+package is absent. It leaves out the one field only the JAX package reads:
 `shapes` (padded buckets that keep `jax.jit` from recompiling; the port
-runs eagerly and uploads tables at their true length) and the pipelined
-tracking switches (not ported). Merging the copies is a roadmap item.
+runs eagerly and uploads tables at their true length). Merging the copies
+is a roadmap item.
 """
 
 from __future__ import annotations
@@ -70,6 +70,18 @@ class SlamConfig:
     sensor: str = "stereo"  # "stereo" | "monocular"
     rectify_left: Optional[RectifyConfig] = None
     rectify_right: Optional[RectifyConfig] = None
+    #: pipelined tracking: dispatch frame i's fused device step, then
+    #: apply frame i-1's (already computed) results — hides the device
+    #: round-trip latency behind the next frame's work. One frame of
+    #: bookkeeping lag; the per-frame return value is the motion-model
+    #: prediction, while the trajectory records solved poses. Off by
+    #: default (the reference's per-frame API is fully synchronous).
+    pipelined_tracking: bool = False
+    #: adaptive gate: pipeline only while tracking support is comfortable;
+    #: below this inlier count the tracker falls back to the synchronous
+    #: fused step (no lag) until support recovers — the lag costs matches
+    #: exactly when the map is thinnest
+    pipeline_min_inliers: int = 150
 
     @property
     def monocular(self) -> bool:

@@ -194,6 +194,17 @@ def ba_problem_pm_to_torch(prob, device):
     return ba.BAProblemPM(**t)
 
 
+def ba_problem_to_torch(prob, device):
+    """A COO `BAProblem` of numpy or JAX arrays (the JAX package's) -> the
+    port's `ops.ba.BAProblem` on `device`, with int64 camera and point
+    indices."""
+    from .ops import ba
+
+    t = {name: to_torch(getattr(prob, name), device) for name in ba.BAProblem._fields}
+    t["obs_kf"], t["obs_pt"] = t["obs_kf"].long(), t["obs_pt"].long()
+    return ba.BAProblem(**t)
+
+
 def vocabulary_to_torch(voc, device):
     """A JAX `Vocabulary` (or any object with its fields, numpy-convertible)
     -> the port's `vocab.bow.Vocabulary` on `device`, with the children's

@@ -1,8 +1,9 @@
-"""Point-major bundle adjustment: Levenberg-Marquardt with block-Jacobi PCG.
+"""Bundle adjustment: Levenberg-Marquardt with block-Jacobi PCG.
 
-Port of the point-major solver of orbslam2_tpu/ops/ba.py (:300-756; the
-COO solver is not ported: the system runs point-major only). Used for the
-local bundle adjustment (reference Optimizer::LocalBundleAdjustment,
+Port of orbslam2_tpu/ops/ba.py: the point-major solver (:300-756), which
+the system runs, and, at the end of this module, the edge-major (COO)
+solver (:41-338, `ba_solve`) with its converter `coo_to_pm` (:350). The
+point-major solver is used for the local bundle adjustment (reference Optimizer::LocalBundleAdjustment,
 src/Optimizer.cpp:426-787) with the reference's two-stage schedule: 5 LM
 iterations, the chi2 outlier cut (5.991 mono / 7.815 stereo), 10 more.
 
@@ -34,6 +35,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -104,6 +106,13 @@ def _pm_edge_terms(poses, points, prob: BAProblemPM, cam: Camera):
     T = poses[prob.obs_kf]  # [P,D,4,4]
     R = T[..., :3, :3]
     pc = torch.einsum("pdij,pj->pdi", R, points) + T[..., :3, 3]
+    return _terms_at(pc, R, prob.obs, prob.is_stereo, cam)
+
+
+def _terms_at(pc, R, obs, is_stereo, cam: Camera):
+    """The edge terms of `_pm_edge_terms` (and of the COO `_edge_terms`)
+    from the points in the camera frame pc [..., 3] and the rotations R
+    [..., 3, 3] of the edges' cameras."""
     x, y, z = pc[..., 0], pc[..., 1], pc[..., 2]
     zs = torch.where(torch.abs(z) < 1e-6, 1e-6, z)
     inv_z = 1.0 / zs
@@ -111,7 +120,7 @@ def _pm_edge_terms(poses, points, prob: BAProblemPM, cam: Camera):
     u = cam.fx * x * inv_z + cam.cx
     v = cam.fy * y * inv_z + cam.cy
     ur = u - cam.bf * inv_z
-    r = prob.obs - torch.stack([u, v, ur], dim=-1)
+    r = obs - torch.stack([u, v, ur], dim=-1)
     zero = torch.zeros_like(x)
     dh = torch.stack(
         [
@@ -126,7 +135,7 @@ def _pm_edge_terms(poses, points, prob: BAProblemPM, cam: Camera):
     dpc = torch.cat([-hat_pc, eye], dim=-1)
     Jc = -(dh @ dpc)
     Jp = -(dh @ R)
-    comp = torch.stack([torch.ones_like(x), torch.ones_like(x), prob.is_stereo.to(x.dtype)], -1)
+    comp = torch.stack([torch.ones_like(x), torch.ones_like(x), is_stereo.to(x.dtype)], -1)
     return r, Jc, Jp, comp, z > 0.0
 
 
@@ -370,3 +379,203 @@ def ba_solve_pm_interruptible(
                       n_iters_second)
     inlier = pm_inlier_mask(state.poses, state.points, prob2, cam)
     return BAResultPM(poses=state.poses, points=state.points, edge_inlier=inlier, final_chi2=state.F)
+
+
+# ---------------------------------------------------------------------------
+# Edge-major (COO) bundle adjustment
+#
+# Port of orbslam2_tpu/ops/ba.py's first solver (:41-338): one row per
+# observation (camera, point) and no layout to build, the JAX package's
+# reference and fallback; no SLAM module calls it. Every per-camera and
+# per-point sum is a fixed-order `segment_sum` (never a float `index_add_`,
+# whose atomics on the card add in the order they land), fp32 as in the JAX
+# package. With a `reducer` (one shard of a mesh, `parallel/dist_ba.py`)
+# the problem holds this shard's edges, poses and points are replicated,
+# and the per-camera and per-point sums and the cost are summed over the
+# shards, where the JAX package psums over its mesh axis.
+# ---------------------------------------------------------------------------
+
+
+class BAProblem(NamedTuple):
+    poses: torch.Tensor  # [K,4,4] float32 Tcw
+    points: torch.Tensor  # [P,3] float32
+    obs_kf: torch.Tensor  # [E] int64 camera index per edge
+    obs_pt: torch.Tensor  # [E] int64 point index per edge
+    obs: torch.Tensor  # [E,3] (u, v, uR)
+    inv_sigma2: torch.Tensor  # [E]
+    is_stereo: torch.Tensor  # [E] bool
+    edge_valid: torch.Tensor  # [E] bool
+    pose_fixed: torch.Tensor  # [K] bool
+
+
+class BAResult(NamedTuple):
+    poses: torch.Tensor
+    points: torch.Tensor
+    edge_inlier: torch.Tensor  # [E] bool (valid and passed the final chi2)
+    final_chi2: torch.Tensor
+
+
+class EdgeSegments(NamedTuple):
+    """The segments of the edges' camera and point indices over the valid
+    edges, built once per solve (a padded or invalid edge weighs nothing)."""
+
+    cam: Segments
+    pt: Segments
+
+
+def edge_segments(prob: BAProblem) -> EdgeSegments:
+    return EdgeSegments(cam=segments(prob.obs_kf, prob.poses.shape[0], prob.edge_valid),
+                        pt=segments(prob.obs_pt, prob.points.shape[0], prob.edge_valid))
+
+
+def _edge_terms(poses, points, prob: BAProblem, cam: Camera):
+    """Residual r [E,3], Jc [E,3,6], Jp [E,3,3], component mask [E,3] and
+    z > 0 [E] of every edge (JAX `_edge_terms`)."""
+    T = poses[prob.obs_kf]  # [E,4,4]
+    R = T[..., :3, :3]
+    pc = torch.einsum("eij,ej->ei", R, points[prob.obs_pt]) + T[..., :3, 3]
+    return _terms_at(pc, R, prob.obs, prob.is_stereo, cam)
+
+
+def _assemble(poses, points, prob: BAProblem, cam: Camera, use_huber: bool, seg: EdgeSegments, reducer=None):
+    """(edge terms for reuse, gradients gc [K,6] and gp [P,3], diagonal
+    blocks Hcc [K,6,6] and Hpp [P,3,3], robust cost), every sum over the
+    mesh's shards. The cost adds the valid edges in the camera segments'
+    order, so padding edges changes none of its bits."""
+    K, P = prob.poses.shape[0], prob.points.shape[0]
+    r, Jc, Jp, comp, dok = _edge_terms(poses, points, prob, cam)
+    w, _, rho = _pm_weights(r, comp, prob, dok, use_huber)
+    W = w[:, None] * comp  # [E,3]
+    Wr = W * r
+    gc = psum(reducer, segment_sum(seg.cam, torch.einsum("eci,ec->ei", Jc, Wr)))
+    gp = psum(reducer, segment_sum(seg.pt, torch.einsum("eci,ec->ei", Jp, Wr)))
+    Hcc = psum(reducer, segment_sum(seg.cam, torch.einsum("eci,ec,ecj->eij", Jc, W, Jc).flatten(-2)))
+    Hpp = psum(reducer, segment_sum(seg.pt, torch.einsum("eci,ec,ecj->eij", Jp, W, Jp).flatten(-2)))
+    F_ = psum(reducer, torch.sum(rho[seg.cam.order]))
+    return (Jc, Jp, W), gc, gp, Hcc.reshape(K, 6, 6), Hpp.reshape(P, 3, 3), F_
+
+
+def _pcg_solve(prob: BAProblem, terms, gc, gp, Hcc, Hpp, lam, n_cg: int, seg: EdgeSegments, reducer=None):
+    """Solve (H + lam I) dx = -g by block-Jacobi PCG, H applied matrix-free
+    over the edges; returns (dxc, dxp, gc with the fixed poses' rows 0)."""
+    Jc, Jp, W = terms
+    free = (~prob.pose_fixed).to(gc.dtype)[:, None]
+    gc = gc * free
+    eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
+    eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
+    Mc = torch.linalg.inv_ex(Hcc + (lam + 1e-6) * eye6).inverse
+    Mp = inv3x3(Hpp + (lam + 1e-6) * eye3)
+
+    def hv(vc, vp):
+        vc = vc * free
+        a = torch.einsum("eci,ei->ec", Jc, vc[prob.obs_kf]) + torch.einsum("eci,ei->ec", Jp, vp[prob.obs_pt])
+        Wa = W * a
+        Hc = psum(reducer, segment_sum(seg.cam, torch.einsum("eci,ec->ei", Jc, Wa))) + lam * vc
+        Hp = psum(reducer, segment_sum(seg.pt, torch.einsum("eci,ec->ei", Jp, Wa))) + lam * vp
+        return Hc * free, Hp
+
+    def precond(rc, rp):
+        return (Mc @ rc[..., None])[..., 0] * free, (Mp @ rp[..., None])[..., 0]
+
+    def safe(x):
+        return torch.where(torch.abs(x) < 1e-20, 1e-20, x)
+
+    xc, xp = torch.zeros_like(gc), torch.zeros_like(gp)
+    rc, rp = gc, gp
+    zc, zp = precond(rc, rp)
+    pc_, pp_ = zc, zp
+    rz = torch.sum(rc * zc) + torch.sum(rp * zp)
+    for _ in range(n_cg):
+        Apc, App = hv(pc_, pp_)
+        alpha = rz / safe(torch.sum(pc_ * Apc) + torch.sum(pp_ * App))
+        xc = xc + alpha * pc_
+        xp = xp + alpha * pp_
+        rc = rc - alpha * Apc
+        rp = rp - alpha * App
+        zc, zp = precond(rc, rp)
+        rz2 = torch.sum(rc * zc) + torch.sum(rp * zp)
+        beta = rz2 / safe(rz)
+        pc_, pp_, rz = zc + beta * pc_, zp + beta * pp_, rz2
+    return -xc, -xp, gc
+
+
+def _lm_run(prob: BAProblem, cam: Camera, poses, points, n_iters: int, n_cg: int, seg: EdgeSegments,
+            reducer=None, use_huber: bool = True):
+    """n_iters LM iterations from (poses, points), lambda from g2o's
+    heuristic; accept or reject on the device. Returns (poses, points, F)."""
+    terms, gc, gp, Hcc, Hpp, F_ = _assemble(poses, points, prob, cam, use_huber, seg, reducer)
+    lam = 1e-5 * torch.maximum(torch.diagonal(Hcc, dim1=-2, dim2=-1).max(),
+                               torch.diagonal(Hpp, dim1=-2, dim2=-1).max())
+    ni = torch.full_like(F_, 2.0)
+    free = (~prob.pose_fixed).to(poses.dtype)[:, None]
+    for it in range(n_iters):
+        if it:
+            terms, gc, gp, Hcc, Hpp, _ = _assemble(poses, points, prob, cam, use_huber, seg, reducer)
+        dxc, dxp, gc = _pcg_solve(prob, terms, gc, gp, Hcc, Hpp, lam, n_cg, seg, reducer)
+        dxc = dxc * free
+        poses_new = se3.retract(poses, dxc)
+        points_new = points + dxp
+        F_new = _assemble(poses_new, points_new, prob, cam, use_huber, seg, reducer)[-1]
+        gdot = torch.sum(dxc * (lam * dxc - gc)) + torch.sum(dxp * (lam * dxp - gp))
+        rho = (F_ - F_new) / (gdot + 1e-12)
+        ok = (rho > 0) & torch.isfinite(F_new)
+        poses = torch.where(ok, poses_new, poses)
+        points = torch.where(ok, points_new, points)
+        F_ = torch.where(ok, F_new, F_)
+        lam = torch.where(ok, lam * torch.clamp(1 - (2 * rho - 1) ** 3, min=1 / 3), lam * ni)
+        ni = torch.where(ok, 2.0, ni * 2.0)
+    return poses, points, F_
+
+
+def edge_chi2(poses, points, prob: BAProblem, cam: Camera):
+    """(chi2 [E], z > 0 [E]) of every edge at the given estimate."""
+    r, _, _, comp, dok = _edge_terms(poses, points, prob, cam)
+    return torch.sum(r * r * comp, dim=-1) * prob.inv_sigma2, dok
+
+
+def ba_solve(prob: BAProblem, cam: Camera, n_iters_first: int = 5, n_iters_second: int = 10, n_cg: int = 30,
+             reducer=None) -> BAResult:
+    """The reference's two-stage schedule on the COO problem: 5 LM
+    iterations, the chi2 cut (5.991 mono / 7.815 stereo) and depth, 10 more,
+    then the final inliers. Two host syncs, in `edge_segments`. `reducer`:
+    this shard's link to the other shards of a mesh (`parallel/dist_ba.py::
+    make_distributed_ba`), or None for the whole problem on one device."""
+    seg = edge_segments(prob)
+    poses, points, _ = _lm_run(prob, cam, prob.poses, prob.points, n_iters_first, n_cg, seg, reducer)
+    e2, dok = edge_chi2(poses, points, prob, cam)
+    th = torch.where(prob.is_stereo, CHI2_STEREO, CHI2_MONO)
+    keep = prob.edge_valid & (e2 <= th) & dok
+    prob2 = prob._replace(edge_valid=keep)
+    poses, points, F_ = _lm_run(prob2, cam, poses, points, n_iters_second, n_cg, seg, reducer)
+    e2, dok = edge_chi2(poses, points, prob2, cam)
+    return BAResult(poses=poses, points=points, edge_inlier=keep & (e2 <= th) & dok, final_chi2=F_)
+
+
+def coo_to_pm(prob: BAProblem, max_obs: int = 16) -> BAProblemPM:
+    """The point-major layout of a COO problem (JAX `coo_to_pm`, on the
+    host): each point's valid edges in edge order, at most `max_obs` of
+    them (later ones dropped), the rows padded to the next power of two of
+    the largest count. The result's tensors lie on the problem's device."""
+    obs_pt = prob.obs_pt.cpu().numpy()
+    order = np.argsort(obs_pt, kind="stable")
+    edges = order[prob.edge_valid.cpu().numpy()[order]]
+    pt = obs_pt[edges]
+    first = np.searchsorted(pt, pt, side="left")
+    slot = np.arange(len(edges)) - first
+    kept = slot < max_obs
+    edges, pt, slot = edges[kept], pt[kept], slot[kept]
+    D = int(slot.max()) + 1 if slot.size else 1
+    D = min(1 << (D - 1).bit_length(), max_obs)
+    P, dev = prob.points.shape[0], prob.points.device
+
+    def rows(values, fill, dtype):
+        out = torch.full((P, D) + tuple(values.shape[1:]), fill, dtype=dtype)
+        out[torch.from_numpy(pt), torch.from_numpy(slot)] = values.cpu()[torch.from_numpy(edges)].to(dtype)
+        return out.to(dev)
+
+    return BAProblemPM(
+        poses=prob.poses, points=prob.points,
+        obs_kf=rows(prob.obs_kf, 0, torch.int64), obs=rows(prob.obs, 0.0, torch.float32),
+        inv_sigma2=rows(prob.inv_sigma2, 1.0, torch.float32), is_stereo=rows(prob.is_stereo, False, torch.bool),
+        edge_valid=rows(torch.ones_like(prob.edge_valid), False, torch.bool), pose_fixed=prob.pose_fixed,
+    )

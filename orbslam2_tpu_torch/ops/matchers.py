@@ -137,11 +137,15 @@ def stereo_match(uvL, octL, descL, validL, uvR, octR, descR, validR,
     d_acc = torch.where(matched, best_dist, hamming.MAX_DIST)
     n_acc = matched.sum()
     sorted_d = torch.sort(d_acc).values
-    median = sorted_d[torch.clamp(n_acc // 2, 0, d_acc.shape[0] - 1)]
+    # gathered on the device: indexing by a 0-dim CUDA tensor reads it on
+    # the host, a wait inside the pipelined dispatch
+    median = sorted_d.gather(0, torch.clamp(n_acc // 2, 0, d_acc.shape[0] - 1).reshape(1))[0]
     th_dist = (1.5 * 1.4) * median.to(torch.float32)
     keep = matched & (best_dist < th_dist)
 
-    bf_t = torch.tensor(bf, dtype=torch.float32, device=disparity.device)
+    # filled on the device: a tensor made from host data would be a
+    # blocking upload, a host wait inside the pipelined dispatch
+    bf_t = torch.full((), bf, dtype=torch.float32, device=disparity.device)
     depth = torch.where(keep, bf_t / disparity, -1.0)
     return StereoMatches(u_right=torch.where(keep, u_right, -1.0), depth=depth, valid=keep)
 

@@ -28,9 +28,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import convert
 from ..kernels import build
 from . import fast, patches
 
+EDGE = 19  # sampling border (reference EDGE_THRESHOLD)
 KP_BORDER = 16  # keypoint-to-edge min distance (EDGE_THRESHOLD - 3)
 CELL = 30  # FAST threshold-fallback cell size (reference 30x30 px cells)
 
@@ -84,6 +86,45 @@ def features_per_level(params: OrbParams) -> list[int]:
 
 def level_sizes(H: int, W: int, params: OrbParams) -> list[tuple[int, int]]:
     return [(int(round(H / s)), int(round(W / s))) for s in scale_factors(params)]
+
+
+def ic_angle(img_pad: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle (reference IC_Angle, src/ORBextractor.cpp:
+    77-104) of the radius-15 disc around each keypoint: img_pad [Hp, Wp]
+    padded by EDGE, xs/ys [K] integer level coordinates -> [K] radians.
+    The disc and moment tables are those of K1's plain version
+    (`convert.IC_MASK`, `IC_DX`, `IC_DY`); K1 computes the same angle inside
+    its kernel. Port of orbslam2_tpu/ops/orb.py::_ic_angle_single."""
+    d = torch.arange(-15, 16, device=img_pad.device)
+    rows = ys.long()[:, None, None] + d[None, :, None] + EDGE
+    cols = xs.long()[:, None, None] + d[None, None, :] + EDGE
+    patch = img_pad[rows, cols]
+    mask = torch.from_numpy(convert.IC_MASK).to(img_pad.device)
+    m10 = torch.sum(patch * (torch.from_numpy(convert.IC_DX).to(img_pad.device) * mask), dim=(-2, -1))
+    m01 = torch.sum(patch * (torch.from_numpy(convert.IC_DY).to(img_pad.device) * mask), dim=(-2, -1))
+    return torch.atan2(m01, m10)
+
+
+def gauss7(img: torch.Tensor) -> torch.Tensor:
+    """7x7 sigma=2 Gaussian blur (reference cv::GaussianBlur before the
+    descriptors) of [..., H, W]: reflect padding by 3, then the separable
+    taps of K1's plain version (`convert.G7`) added by shift and add, rows
+    first, in the order of orbslam2_tpu/ops/orb.py::gauss7."""
+    H, W = img.shape[-2:]
+    g7 = [float(g) for g in convert.G7]
+
+    def pad(x):
+        return F.pad(x.reshape(-1, 1, H, W), (3, 3, 3, 3), mode="reflect").reshape(*img.shape[:-2], H + 6, W + 6)
+
+    ip = pad(img)
+    row = torch.zeros_like(img)
+    for k in range(7):
+        row = row + g7[k] * ip[..., 3:3 + H, k:k + W]
+    rp = pad(row)
+    out = torch.zeros_like(img)
+    for k in range(7):
+        out = out + g7[k] * rp[..., k:k + H, 3:3 + W]
+    return out
 
 
 def _cell_any(mask: torch.Tensor, cell: int) -> torch.Tensor:

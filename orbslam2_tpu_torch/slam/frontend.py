@@ -178,10 +178,14 @@ class FrameHost:
         self.Tcw: Optional[np.ndarray] = None  # [4,4] float32
 
     def _fetch_host(self):
-        host = [t.cpu() for t in self._dev]
+        self.attach_host([t.cpu() for t in self._dev])
+
+    def attach_host(self, host):
+        """Install the features already copied to the host (CPU tensors in
+        `FrameFeatures` order): the pipelined tracker copies them together
+        with the step outputs (JAX `FrameHost.attach_host`)."""
         for name, t in zip(FrameHost._HOST_FIELDS, host):
-            a = convert.desc_to_numpy(t) if name == "desc" else t.numpy()
-            self.__dict__[name] = a
+            self.__dict__[name] = convert.desc_to_numpy(t) if name == "desc" else t.numpy()
 
     def __getattr__(self, name):
         # only reached when normal lookup fails: the first host access on a

@@ -7,7 +7,8 @@ src/System.cpp): construction wires the stages (vocabulary and keyframe
 database, tracking, local mapping, loop closing), `track_stereo` and
 `track_monocular` are the per-frame entries (the sensor chosen at
 construction), plus localization-mode switching, reset, wait_idle,
-shutdown with the stage-timing report, and the four trajectory savers.
+shutdown with the stage-timing report, the four trajectory savers, and
+`precompile`, which warms the rare-event device programs before a run.
 
 The local mapper processes each keyframe inline in the tracking call, one
 queued keyframe per frame with `deferred_mapping=True`, or on a worker
@@ -40,7 +41,7 @@ import torch
 
 from ..config import SlamConfig, load_config
 from ..vocab import bow as bow_mod
-from . import checkpoint
+from . import checkpoint, precompile as precompile_mod
 from . import trajectory as traj_mod
 from .frontend import Frontend
 from .local_mapping import LocalMapper
@@ -155,7 +156,14 @@ class System:
 
     def track_stereo(self, im_left, im_right, timestamp: float):
         """Per-frame entry (reference System::TrackStereo, System.cpp:90-142).
-        Returns the frame's solved Tcw [4,4], or None when tracking is lost."""
+        Returns Tcw [4,4], or None when tracking is lost.
+
+        Return contract by mode (JAX slam/system.py:132-147): synchronous
+        (the default), the frame's SOLVED pose, as the reference's
+        TrackStereo returns it; with `config.pipelined_tracking`, while the
+        pipeline is engaged, the motion-model PREDICTION for the new frame
+        (its fused step is still in flight): the solved pose is recorded in
+        the trajectory when the next frame applies it, one frame later."""
         with self._track_lock:
             with self.timers.span("Total tracking"):
                 Tcw = self.tracker.track(im_left, im_right, timestamp)
@@ -178,6 +186,7 @@ class System:
     def activate_localization_mode(self):
         """Reference ActivateLocalizationMode: mapping paused, tracking only."""
         with self._track_lock:
+            self.tracker.flush_pipeline()
             self.tracker.only_tracking = True
             self.local_mapper.request_stop()
 
@@ -208,8 +217,11 @@ class System:
     def wait_idle(self, timeout: float = 120.0):
         """Block until the queued mapping and loop-closing work is done: the
         mapping worker, then the loop worker and its global BA, then the
-        mapping worker again (a correction releases the mapper). A no-op
-        unless threaded; raises a worker's error, if it had one."""
+        mapping worker again (a correction releases the mapper). The
+        pipelined tracker's dispatched frames are applied first. Raises a
+        worker's error, if it had one."""
+        with self._track_lock:
+            self.tracker.flush_pipeline()
         if self.worker is not None:
             self.worker.wait_idle(timeout)
         if self.loop_worker is not None:
@@ -228,7 +240,11 @@ class System:
         stereo matching" is also reported as the reference's two stages
         (Frame.cpp:112-132): `Frontend.measure_stage_split` times the
         extraction alone against the whole front end on the last stereo
-        pair, and the difference goes to "Stereo matching"."""
+        pair, and the difference goes to "Stereo matching".
+
+        The pipelined tracker's dispatched frames are applied first."""
+        with self._track_lock:
+            self.tracker.flush_pipeline()
         if self.worker is not None:
             self.worker.finish()
             self.worker = None
@@ -245,6 +261,18 @@ class System:
                 self.timers.add("ORB extraction", a * 1e6)
                 self.timers.add("Stereo matching", max(b - a, 0.0) * 1e6)
         return self.timers.report()
+
+    def precompile(self) -> float:
+        """Warm every device program that a rare event runs (relocalization,
+        loop closing, the mapper's BA, the kernels' first launches), on this
+        System's device at its configured sizes, from dummy inputs, so that
+        no first-use cost lands mid-run (JAX slam/system.py:213-474; see
+        `slam/precompile.py`). Raises on any failure. Leaves the map, the
+        keyframe database, the trajectory, the tracker, the launch counters
+        and the stage timers as they were; call it while the System is
+        idle, e.g. before the first frame. Returns its seconds."""
+        with self._track_lock:
+            return precompile_mod.warm(self)
 
     # ------------------------------------------------------------------
 

@@ -26,14 +26,11 @@ workers) and left there as plain data.
 from __future__ import annotations
 
 import copy
-import fcntl
-import os
-import pickle
 import threading
 import types
 
 import numpy as np
-from _torch_parity import slam_config
+from _torch_parity import shared_run, slam_config
 
 N_FRAMES = 45
 N_PARITY = 29  # frames 0..28: the second local BA runs on frame 28
@@ -185,22 +182,5 @@ _PARTS = {"jax": _run_jax, "port": _run_port}
 
 def shared_part(tmp_path_factory, name: str) -> dict:
     """Part `name` ("jax" or "port") of the run, made by its first caller of
-    this session and read by the others (the xdist workers of one session
-    share the parent of their temporary directories)."""
-    base = tmp_path_factory.getbasetemp()
-    where = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
-    path = where / f"torch_local_mapping_{name}.pkl"
-    with open(where / f"torch_local_mapping_{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if path.exists():
-                with open(path, "rb") as f:
-                    return pickle.load(f)
-            runs = _PARTS[name]()
-            part = path.with_suffix(".part")
-            with open(part, "wb") as f:
-                pickle.dump(runs, f)
-            os.replace(part, path)
-            return runs
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
+    this session and read by the others (`_torch_parity.shared_run`)."""
+    return shared_run(tmp_path_factory, f"torch_local_mapping_{name}", _PARTS[name])

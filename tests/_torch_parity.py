@@ -7,6 +7,10 @@ the JAX package's own tests run it) and its counterpart in
 
 from __future__ import annotations
 
+import fcntl
+import os
+import pickle
+
 import numpy as np
 import torch
 
@@ -139,3 +143,52 @@ def projected(rng, eye, n):
     uv = (eye["uv"][pick] + rng.normal(0, 2.0, (n, 2))).astype(np.float32)
     octv = np.clip(eye["oct"][pick] + rng.integers(-1, 2, n), 0, 7).astype(np.int32)
     return pick, uv, octv, flip_bits(rng, eye["desc"][pick])
+
+
+def shared_run(tmp_path_factory, name: str, make):
+    """make()'s result (plain, picklable data), made once per pytest session
+    by its first caller under a file lock and read back by the others: the
+    xdist workers of one session share the parent of their temporary
+    directories."""
+    base = tmp_path_factory.getbasetemp()
+    where = base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+    path = where / f"{name}.pkl"
+    with open(where / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                with open(path, "rb") as f:
+                    return pickle.load(f)
+            out = make()
+            part = path.with_suffix(".part")
+            with open(part, "wb") as f:
+                pickle.dump(out, f)
+            os.replace(part, path)
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def frontend_pair():
+    """tests/test_torch_frontend.py's stereo pair (frame 2 of the world of
+    tests/test_tracking.py, rounded) [2, H, W] float32, and its world."""
+    from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
+
+    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
+    imL, imR = world.render_stereo(world.trajectory(3, step=0.06)[2])
+    return world, np.stack([np.rint(imL), np.rint(imR)]).astype(np.float32)
+
+
+def jax_frontend_on_pair():
+    """The JAX package's front end on `frontend_pair()`, as numpy: its
+    FrameFeatures and the extractor's features of both eyes."""
+    import jax
+
+    from orbslam2_tpu import config as jax_config
+    from orbslam2_tpu.ops import orb as jorb
+    from orbslam2_tpu.slam.frontend import Frontend as JaxFrontend
+
+    world, images = frontend_pair()
+    jf = JaxFrontend(slam_config(world, jax_config))
+    fj = jax.jit(lambda im: jorb.extract(im, jf.orb_params))(images)
+    return jax.device_get((jf._process(images), fj))

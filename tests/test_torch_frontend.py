@@ -14,38 +14,27 @@ Stated tolerances:
     sets agree on >= 99%.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
-from _torch_parity import np_of, slam_config
+from _torch_parity import frontend_pair, jax_frontend_on_pair, np_of, shared_run, slam_config
 
-from orbslam2_tpu import config as jax_config
 from orbslam2_tpu.ops import orb as jorb
-from orbslam2_tpu.slam.frontend import Frontend as JaxFrontend
 from orbslam2_tpu_torch import config as torch_config
-from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.ops import orb as torb
 from orbslam2_tpu_torch.slam.frontend import Frontend
 
 
 @pytest.fixture(scope="module")
-def pair():
-    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
-    T = world.trajectory(3, step=0.06)[2]
-    imL, imR = world.render_stereo(T)
-    images = np.stack([np.rint(imL), np.rint(imR)]).astype(np.float32)
-    return world, images
-
-
-@pytest.fixture(scope="module")
-def features(pair):
-    world, images = pair
-    jf = JaxFrontend(slam_config(world, jax_config))
+def features(tmp_path_factory):
+    """(JAX FrameFeatures, the port's, JAX extractor features, the port's)
+    of the pair; the JAX package's part is made once per session, shared
+    with tests/test_torch_frontend_parts.py."""
+    world, images = frontend_pair()
+    jfd, fj = shared_run(tmp_path_factory, "torch_frontend_jax_pair", jax_frontend_on_pair)
     tf = Frontend(slam_config(world, torch_config), device="cpu")
-    fj = jax.jit(lambda im: jorb.extract(im, jf.orb_params))(images)
     ft = torb.extract(torch.from_numpy(images), tf.orb_params)
-    return jf._process(images), tf.features_body(torch.from_numpy(images)), fj, ft
+    return jfd, tf.features_body(torch.from_numpy(images)), fj, ft
 
 
 def _keys(uv, octave, valid):

@@ -4,17 +4,13 @@ across by convert.py keep every value and descriptor bit, and
 search_by_bow on them equals the JAX package's exactly.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
-from _torch_parity import np_of, slam_config
+from _torch_parity import jax_frontend_on_pair, np_of, shared_run
 
-from orbslam2_tpu import config as jax_config
 from orbslam2_tpu.datasets.synthetic import SyntheticWorld as JaxWorld
 from orbslam2_tpu.ops import matchers as jmatch
-from orbslam2_tpu.ops import orb as jorb
-from orbslam2_tpu.slam.frontend import Frontend as JaxFrontend
 from orbslam2_tpu_torch import convert
 from orbslam2_tpu_torch.datasets.synthetic import SyntheticWorld
 from orbslam2_tpu_torch.ops import matchers as tmatch
@@ -22,16 +18,11 @@ from orbslam2_tpu_torch.ops import patches as tpatches
 
 
 @pytest.fixture(scope="module")
-def jax_features():
+def jax_features(tmp_path_factory):
     """The JAX front end on tests/test_torch_frontend.py's stereo pair: its
-    FrameFeatures and the extractor's features of both eyes."""
-    world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
-    T = world.trajectory(3, step=0.06)[2]
-    imL, imR = world.render_stereo(T)
-    images = np.stack([np.rint(imL), np.rint(imR)]).astype(np.float32)
-    jf = JaxFrontend(slam_config(world, jax_config))
-    fj = jax.jit(lambda im: jorb.extract(im, jf.orb_params))(images)
-    return jf._process(images), fj
+    FrameFeatures and the extractor's features of both eyes, made once per
+    session and shared with that file."""
+    return shared_run(tmp_path_factory, "torch_frontend_jax_pair", jax_frontend_on_pair)
 
 
 def test_synthetic_render_matches_jax():

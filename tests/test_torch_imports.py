@@ -94,9 +94,14 @@ def test_copies_equal_jax_package(part, tmp_path, capsys):
             assert dataclasses.asdict(getattr(tconfig, name)()) == dataclasses.asdict(
                 getattr(jconfig, name)())
         t, j = tconfig.SlamConfig(), jconfig.SlamConfig()
-        jax_only = {"shapes", "pipelined_tracking", "pipeline_min_inliers"}
+        jax_only = {"shapes"}
         assert [f.name for f in dataclasses.fields(t)] == [
             f.name for f in dataclasses.fields(j) if f.name not in jax_only]
+        for f in dataclasses.fields(t):  # every default equal to JAX's
+            a, b = getattr(t, f.name), getattr(j, f.name)
+            if dataclasses.is_dataclass(a):
+                a, b = dataclasses.asdict(a), dataclasses.asdict(b)
+            assert a == b, f.name
         assert (t.baseline, t.depth_threshold, t.max_frames) == (j.baseline, j.depth_threshold, j.max_frames)
     elif part == "timing":
         t, j = ttiming.StageTimers(), jtiming.StageTimers()

@@ -18,12 +18,13 @@ VOCAB = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.mark.parametrize("kw", [
     dict(vocabulary=VOCAB, threaded=True), dict(vocabulary=VOCAB, mesh=Mesh(["cpu"] * 2)), dict(sensor="monocular"),
     dict(use_viewer=True), dict(settings=torch_config.SlamConfig(camera=torch_config.CameraConfig(k1=0.1))),
+    dict(settings=torch_config.SlamConfig(pipelined_tracking=True)),
 ])
 def test_refuses_unported_options(kw):
     """The options that were refused until loop closing on its own thread,
     a device mesh (routed to the loop closer), the monocular sensor,
-    undistortion and the viewer were ported construct (the viewer's live
-    thread runs until `shutdown` joins it)."""
+    undistortion, the viewer and pipelined tracking were ported construct
+    (the viewer's live thread runs until `shutdown` joins it)."""
     args = dict(vocabulary=None, settings=slam_config(SyntheticWorld(n_points=10, seed=0), torch_config),
                 device="cpu")
     args.update(kw)
@@ -36,6 +37,8 @@ def test_refuses_unported_options(kw):
         assert s.config.monocular and s.tracker.config.monocular
     elif "use_viewer" in kw:
         assert s.viewer is not None and s.viewer._live_thread.is_alive()
+    elif kw["settings"].pipelined_tracking:
+        assert s.tracker.pipelined and s.tracker._pending == []
     else:
         assert s.frontend.has_distortion
     s.shutdown()

@@ -8,7 +8,18 @@ Stated tolerances:
     keypoints, Tcw within 1e-3 m / 1e-3 rad;
   * the port's tracker against the JAX tracker over the first 12 frames,
     both without a local mapper: the same state every frame, camera poses
-    within 1 cm.
+    within 1 cm;
+  * the same, both with `pipelined_tracking` on: the same frames dispatched
+    by the pipeline; every prediction returned on a dispatched frame within
+    1e-5 of its two-frame motion model applied to the last applied pose,
+    from that tracker's own state at dispatch (float32 of a float64
+    product): the JAX package's velocity twice, the port's displacement
+    over the last two frames (a deliberate divergence, `Tracker.
+    _assemble_fused`); the solved poses of the trajectories within 1 cm, as
+    in the synchronous run (the solve does not depend on the prediction
+    while the matches stay in their window). The JAX pipelined tracker
+    reuses the synchronous one's compiled programs: each tracker is reset
+    and run again.
 """
 
 import jax
@@ -38,6 +49,40 @@ def _center(T):
     return -T[:3, :3].T.astype(np.float64) @ T[:3, 3]
 
 
+def _restart_pipelined(tracker):
+    """The tracker as a new one, with pipelining on, keeping its compiled
+    programs (the JAX tracker's jit closures belong to the instance, and a
+    new one would trace and compile them again)."""
+    tracker.reset()
+    tracker.frame_id = tracker.last_kf_id = 0
+    tracker._cand_cache = None
+    tracker.pipelined = True
+
+
+def _pipelined(tracker, frames):
+    """Track `frames` with the tracker's pipeline on and drain it; returns
+    (what track returned, per dispatched frame (index, the prediction from
+    the tracker's state at dispatch)). Either package's tracker."""
+    dispatched = []
+    dispatch = tracker._track_pipelined
+
+    def recording(images_u8, timestamp):
+        # the prediction spans 1 + len(_pending) frames; over two, the JAX
+        # package applies the velocity twice, the port applies the
+        # displacement over the last two frames (velocity x prev_velocity;
+        # the velocity twice while it has no previous one)
+        v = np.asarray(tracker.velocity, np.float64)
+        prev = getattr(tracker, "prev_velocity", None)
+        step = v @ (v if prev is None else np.asarray(prev, np.float64)) if tracker._pending else v
+        dispatched.append((tracker.frame_id, step @ np.asarray(tracker.last_frame.Tcw, np.float64)))
+        return dispatch(images_u8, timestamp)
+
+    tracker._track_pipelined = recording
+    rets = [tracker.track(imL, imR, timestamp=i / 20.0) for i, (imL, imR) in enumerate(frames)]
+    tracker.flush_pipeline()
+    return rets, dispatched
+
+
 @pytest.fixture(scope="module")
 def runs():
     world = SyntheticWorld(n_points=900, seed=7, baseline=0.2)
@@ -63,7 +108,13 @@ def runs():
         T = tt.track(imL, imR, timestamp=i / 20.0)
         port_out.append((tt.state.name, T))
     port_step = tt._full_step(*convert.full_step_args_to_torch(args, "cpu"))
-    return dict(jax_out=jax_out, port_out=port_out, jax_step=jax_step, port_step=port_step)
+
+    # both trackers again from the start, pipelined
+    pipelined = {}
+    for name, t in (("jax", jt), ("port", tt)):
+        _restart_pipelined(t)
+        pipelined[name] = (t, *_pipelined(t, frames[:N_PARITY]))
+    return dict(jax_out=jax_out, port_out=port_out, jax_step=jax_step, port_step=port_step, pipelined=pipelined)
 
 
 def test_full_step_on_jax_arguments(runs):
@@ -83,3 +134,15 @@ def test_tracker_matches_jax(runs):
         assert (Tj is None) == (Tt is None), i
         if Tj is not None:
             assert np.linalg.norm(_center(np.asarray(Tj)) - _center(Tt)) < 0.01, i
+
+
+def test_pipelined_tracker_matches_jax(runs):
+    (jt, jrets, jdisp), (tt, trets, tdisp) = runs["pipelined"]["jax"], runs["pipelined"]["port"]
+    assert [i for i, _ in tdisp] == [i for i, _ in jdisp] and len(tdisp) >= 6
+    for rets, disp in ((jrets, jdisp), (trets, tdisp)):
+        for i, want in disp:
+            np.testing.assert_allclose(np.asarray(rets[i]), want, atol=1e-5)
+    assert len(jt.trajectory) == len(tt.trajectory) == N_PARITY and not tt._pending
+    for i, (a, b) in enumerate(zip(jt.trajectory, tt.trajectory)):
+        assert a.lost == b.lost, i
+        assert np.linalg.norm(_center(np.asarray(a.Tcw)) - _center(b.Tcw)) < 0.01, i
